@@ -1,0 +1,510 @@
+"""Per-robot submap mapper — port of ``coxgraph_tpu.mapper.submap_mapper``
+(the integration slice).
+
+A SubmapCollection is one dataclass of tensors whose fields carry a
+leading submap axis (S, ...). A submap = posed TSDF layer + time interval
++ in-submap pose history. Pose histories are stored in the submap frame,
+so a pose-graph update of T_odom_submap re-poses a whole trajectory
+segment.
+
+Where the JAX package donated the state to a jitted function and got a
+new one back, the port updates the state's tensors IN PLACE:
+``start_submap``, ``integrate``, ``integrate_batch`` and
+``consume_mesh_dirty`` mutate ``state`` (and return it), as do
+``HostMapper.step`` and ``HostMapper.step_batch``. The active submap and
+all per-frame values stay on the device: a frame issues no device-to-host
+read.
+
+Not ported yet: live meshing, ``optimize_local``, ``merged_layer``,
+``step_points`` and ``finish_map``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import warnings
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core import geometry as geo
+from ..core import voxel as vx
+from ..frontends.synthetic import PinholeIntrinsics
+from ..ops import tsdf as tsdf_ops
+from ..solver import pose_graph as pg
+from ..utils.tensorops import put_row, where_fields
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class MapperConfig:
+    """Static mapper parameters (the JAX package's fields and defaults;
+    its ``local_solver`` and ``point_integrator`` belong to paths not
+    ported yet)."""
+
+    spec: vx.VoxelGridSpec = vx.VoxelGridSpec()
+    integrator: tsdf_ops.TsdfIntegratorConfig = \
+        tsdf_ops.TsdfIntegratorConfig()
+    intrinsics: PinholeIntrinsics = PinholeIntrinsics()
+    max_submaps: int = 32
+    max_history: int = 512            # poses per submap history
+    submap_interval: float = 10.0     # s
+    max_constraints: int = 256
+    odom_sqrt_info: float = 20.0      # odometry constraint confidence
+    # absolute height priors on submap poses (odom z at submap creation);
+    # 0 = off
+    height_prior_stddev: float = 0.0
+
+
+@dataclasses.dataclass
+class SubmapCollection:
+    """Stacked submaps: every TsdfLayer field gains a leading (S,) axis."""
+
+    layers: vx.TsdfLayer              # fields (S, ...)
+    T_odom_submap: Tensor             # (S,7)
+    start_time: Tensor                # (S,)
+    end_time: Tensor                  # (S,)
+    hist_stamps: Tensor               # (S,H)
+    hist_poses: Tensor                # (S,H,7) T_submap_cam
+    hist_count: Tensor                # (S,) int32
+    num_submaps: Tensor               # () int32
+
+    @property
+    def active(self) -> Tensor:
+        return torch.clamp(self.num_submaps - 1, min=0)
+
+
+@dataclasses.dataclass
+class MapperState:
+    collection: SubmapCollection
+    constraints: pg.RelPoseConstraints   # local pose graph (odometry chain)
+    heights: pg.HeightConstraints        # absolute z priors
+    frame_count: Tensor                  # () int32
+    # largest touched-block union of any integrate_batch window, and the
+    # running count of block updates dropped for lack of working-set room
+    # (always 0 on the GPU path, which has no union cap)
+    union_watermark: Tensor              # () int32
+    dropped_union_blocks: Tensor         # () int32
+    # per-submap updated-block bits (voxblox Block::updated(mesh)):
+    # integrators OR in the slots whose voxels they wrote;
+    # consume_mesh_dirty pops a row
+    mesh_dirty: Tensor                   # (S, max_blocks) bool
+
+
+def create_collection(cfg: MapperConfig, device) -> SubmapCollection:
+    S, H = cfg.max_submaps, cfg.max_history
+    spec = cfg.spec
+    mb, v, g = spec.max_blocks, spec.voxels_per_side, spec.grid_dim
+    f32, i32 = torch.float32, torch.int32
+    layers = vx.TsdfLayer(
+        sdf=torch.full((S, mb, v ** 3), spec.truncation, dtype=f32,
+                       device=device),
+        weight=torch.zeros((S, mb, v ** 3), dtype=f32, device=device),
+        color=torch.zeros((S, mb, 3 * v ** 3), dtype=f32, device=device),
+        block_index=torch.full((S, g, g, g), -1, dtype=i32, device=device),
+        block_coords=torch.zeros((S, mb, 3), dtype=i32, device=device),
+        num_blocks=torch.zeros((S,), dtype=i32, device=device),
+    )
+    ident = geo.identity(device)
+    return SubmapCollection(
+        layers=layers,
+        T_odom_submap=ident[None].repeat(S, 1),
+        start_time=torch.zeros((S,), dtype=f32, device=device),
+        end_time=torch.zeros((S,), dtype=f32, device=device),
+        hist_stamps=torch.zeros((S, H), dtype=f32, device=device),
+        hist_poses=ident[None, None].repeat(S, H, 1),
+        hist_count=torch.zeros((S,), dtype=i32, device=device),
+        num_submaps=torch.zeros((), dtype=i32, device=device),
+    )
+
+
+def create_mapper(cfg: MapperConfig, device) -> MapperState:
+    i32 = torch.int32
+    return MapperState(
+        collection=create_collection(cfg, device),
+        constraints=pg.RelPoseConstraints.empty(cfg.max_constraints, device),
+        heights=pg.HeightConstraints.empty(cfg.max_submaps, device),
+        frame_count=torch.zeros((), dtype=i32, device=device),
+        union_watermark=torch.zeros((), dtype=i32, device=device),
+        dropped_union_blocks=torch.zeros((), dtype=i32, device=device),
+        mesh_dirty=torch.zeros((cfg.max_submaps, cfg.spec.max_blocks),
+                               dtype=torch.bool, device=device),
+    )
+
+
+def get_layer(layers: vx.TsdfLayer, k) -> vx.TsdfLayer:
+    """Copy of submap ``k``'s layer (``k`` an int or 0-d device tensor)."""
+    kk = torch.as_tensor(k, device=layers.sdf.device).reshape(1).long()
+    return vx.TsdfLayer(**{f.name: getattr(layers, f.name).index_select(
+        0, kk)[0] for f in dataclasses.fields(layers)})
+
+
+def _row(x: Tensor, k: Tensor) -> Tensor:
+    return x.index_select(0, k.reshape(1).long())[0]
+
+
+def start_submap(cfg: MapperConfig, state: MapperState, T_odom_cam: Tensor,
+                 t: Tensor) -> MapperState:
+    """Open a new submap anchored at the current odometry pose and chain an
+    odometry constraint from the previous submap, IN PLACE. When the pool
+    is saturated (num_submaps == max_submaps) the slot writes AND the
+    constraint adds are dropped."""
+    col = state.collection
+    S = cfg.max_submaps
+    k = col.num_submaps.clone()                  # the new slot
+    prev = torch.clamp(k - 1, min=0)
+    T_prev_new = geo.relative(_row(col.T_odom_submap, prev), T_odom_cam)
+
+    put_row(col.T_odom_submap, k, T_odom_cam)
+    put_row(col.start_time, k, t)
+    put_row(col.end_time, k, t)
+    put_row(col.hist_count, k, 0)
+    col.num_submaps.copy_(torch.clamp(k + 1, max=S))
+
+    in_pool = k < S
+    eye = torch.eye(6, dtype=torch.float32, device=k.device)
+    state.constraints = where_fields(
+        (k > 0) & in_pool,
+        state.constraints.add(prev, k, T_prev_new, cfg.odom_sqrt_info * eye),
+        state.constraints)
+    if cfg.height_prior_stddev > 0:
+        state.heights = where_fields(
+            in_pool,
+            state.heights.add(k, T_odom_cam[6], cfg.height_prior_stddev),
+            state.heights)
+    return state
+
+
+def _append_history(cfg: MapperConfig, col: SubmapCollection, k: Tensor,
+                    T_sm_cams: Tensor, ts: Tensor) -> None:
+    """F saturating history appends to submap ``k`` at once, identical to
+    F sequential appends: once the history is full every frame writes the
+    last entry, so those lanes all carry the LAST frame's values."""
+    F = ts.shape[0]
+    Hmax = cfg.max_history
+    kk = k.reshape(1).long()
+    c0 = _row(col.hist_count, k)
+    idx = torch.arange(F, device=ts.device)
+    h = torch.clamp(c0 + idx, max=Hmax - 1).long()
+    src = torch.where(h == Hmax - 1, F - 1, idx)
+    kr = kk.expand(F)
+    col.hist_stamps.index_put_((kr, h), ts[src])
+    col.hist_poses.index_put_((kr, h), T_sm_cams[src])
+    col.hist_count.index_copy_(0, kk, torch.clamp(c0 + F, max=Hmax)[None])
+    col.end_time.index_copy_(0, kk, ts[F - 1:])
+
+
+def _integrate_frames(cfg: MapperConfig, state: MapperState,
+                      depths: Tensor, colors: Optional[Tensor],
+                      T_odom_cams: Tensor, ts: Tensor):
+    """Shared body of integrate / integrate_batch (IN PLACE) →
+    (n_union, n_dropped) of the window."""
+    col = state.collection
+    k = col.active
+    T_sm_cams = geo.relative(_row(col.T_odom_submap, k)[None], T_odom_cams)
+    _, (n_union, n_dropped, touched) = tsdf_ops.integrate_window_stacked_impl(
+        cfg.spec, cfg.integrator, cfg.intrinsics, col.layers, k, depths,
+        colors, T_sm_cams, return_stats=True)
+    _append_history(cfg, col, k, T_sm_cams, ts.to(torch.float32))
+    state.frame_count += depths.shape[0]
+    kk = k.reshape(1).long()
+    state.mesh_dirty.index_copy_(
+        0, kk, state.mesh_dirty.index_select(0, kk) | touched[None])
+    return n_union, n_dropped
+
+
+def integrate(cfg: MapperConfig, state: MapperState, depth: Tensor,
+              color: Optional[Tensor], T_odom_cam: Tensor,
+              t: Tensor) -> MapperState:
+    """Integrate one RGB-D frame into the active submap and append to its
+    pose history, IN PLACE. (The window counters are integrate_batch's.)"""
+    _integrate_frames(cfg, state, depth[None],
+                      None if color is None else color[None],
+                      T_odom_cam[None], t.reshape(1))
+    return state
+
+
+def integrate_batch(cfg: MapperConfig, state: MapperState, depths: Tensor,
+                    colors: Optional[Tensor], T_odom_cams: Tensor,
+                    ts: Tensor) -> MapperState:
+    """Integrate a window of F frames into the CURRENT active submap, IN
+    PLACE; equal to F sequential ``integrate`` calls, plus the window's
+    union counters. Submap rollover is the caller's (HostMapper splits
+    windows at rollover times).
+
+    depths (F,H,W) f32; colors (F,H,W,3) | (F,3,H,W) | None; T_odom_cams
+    (F,7); ts (F,) f32 — all on the state's device. Issues no
+    device-to-host read."""
+    n_union, n_dropped = _integrate_frames(cfg, state, depths, colors,
+                                           T_odom_cams, ts)
+    torch.maximum(state.union_watermark, n_union, out=state.union_watermark)
+    state.dropped_union_blocks += n_dropped
+    return state
+
+
+def consume_mesh_dirty(state: MapperState, k) -> Tuple[Tensor, MapperState]:
+    """Pop submap ``k``'s updated-block bitmap → ((max_blocks,) bool copy,
+    state with the row cleared IN PLACE)."""
+    kk = torch.as_tensor(k, device=state.mesh_dirty.device).reshape(1).long()
+    row = state.mesh_dirty.index_select(0, kk)[0]
+    state.mesh_dirty.index_fill_(0, kk, False)
+    return row, state
+
+
+class HostMapper:
+    """Host-side wrapper that mirrors the rollover scalars (submap count,
+    active start time) so the per-frame loop issues ZERO device→host
+    reads. ``step`` and ``step_batch`` update ``self.state`` in place."""
+
+    def __init__(self, cfg: MapperConfig,
+                 state: Optional[MapperState] = None, device=None):
+        if state is None and device is None:
+            raise ValueError("HostMapper needs a state or a device")
+        self.cfg = cfg
+        self.state = state if state is not None else create_mapper(cfg,
+                                                                   device)
+        self.device = self.state.frame_count.device
+        self.n_submaps = int(self.state.collection.num_submaps)
+        self.last_start = (
+            float(self.state.collection.start_time[self.n_submaps - 1])
+            if self.n_submaps else 0.0)
+        # toggle_mapping service state: frames arriving while disabled
+        # are dropped
+        self.mapping_enabled = True
+        # rollovers refused because the submap pool was full — frames keep
+        # integrating into the LAST submap (warn-and-count)
+        self.dropped_submaps = 0
+        # deferred window-overflow check: step_batch schedules an async
+        # host copy of the union counters after each window and consumes
+        # it at the next call, so no window waits on a readback
+        self._pending_stats = None
+        self._warned_dropped = 0
+        # schedule/consume the union counters every Nth window (0 = never)
+        self.stats_check_windows = 1
+        self._windows_done = 0
+        # HOST MIRROR of the timeline, submap-frame pose histories and
+        # submap poses, kept from host inputs with no device readback.
+        # Only valid when it observed every submap from creation.
+        self.mirror_enabled = self.n_submaps == 0
+        self.host_T_odom_submap: list = []     # per-submap np (7,)
+        self.host_submaps: list = []           # {start,end,stamps,poses}
+
+    # -- host mirror maintenance ----------------------------------------
+
+    def _mirror_host_pose(self, T_odom_cam):
+        """np view of a pose input, or None after DISABLING the mirror:
+        device poses would cost a readback per frame to mirror."""
+        if isinstance(T_odom_cam, np.ndarray):
+            return T_odom_cam
+        if self.mirror_enabled:
+            self.mirror_enabled = False
+            self.host_submaps.clear()
+            self.host_T_odom_submap.clear()
+        return None
+
+    def _mirror_start(self, T_odom_cam, t: float) -> None:
+        if not self.mirror_enabled:
+            return
+        T = self._mirror_host_pose(T_odom_cam)
+        if T is None:
+            return
+        self.host_T_odom_submap.append(np.asarray(T, np.float32).copy())
+        self.host_submaps.append({"start": float(t), "end": float(t),
+                                  "stamps": [], "poses": []})
+
+    def _mirror_frame(self, T_odom_cam, t: float) -> None:
+        if not self.mirror_enabled or not self.host_submaps:
+            return
+        T_odom_cam = self._mirror_host_pose(T_odom_cam)
+        if T_odom_cam is None:
+            return
+        k = len(self.host_submaps) - 1
+        rec = self.host_submaps[k]
+        T_sm_cam = geo.relative_np(self.host_T_odom_submap[k],
+                                   np.asarray(T_odom_cam, np.float32))
+        if len(rec["stamps"]) >= self.cfg.max_history:
+            # saturating append — mirrors the device h-clamp exactly
+            rec["stamps"][-1] = float(t)
+            rec["poses"][-1] = T_sm_cam
+        else:
+            rec["stamps"].append(float(t))
+            rec["poses"].append(T_sm_cam)
+        rec["end"] = float(t)
+
+    def refresh_pose_mirror(self, state: Optional[MapperState] = None
+                            ) -> None:
+        """Re-read submap poses after a DEVICE-side pose change — one
+        whole-buffer readback of (S,7)."""
+        if not self.mirror_enabled:
+            return
+        col = (state or self.state).collection
+        T = col.T_odom_submap.cpu().numpy()
+        for k in range(min(len(self.host_T_odom_submap), T.shape[0])):
+            self.host_T_odom_submap[k] = T[k].copy()
+
+    def apply_pose_updates_host(self, updates) -> None:
+        """Mirror server-pushed pose updates (host values — free)."""
+        if not self.mirror_enabled:
+            return
+        for k, T in updates:
+            if int(k) < len(self.host_T_odom_submap):
+                self.host_T_odom_submap[int(k)] = \
+                    np.asarray(T, np.float32).copy()
+
+    # -- saturation and union counters ----------------------------------
+
+    def _rollover_sat(self, n: Optional[int] = None) -> bool:
+        """True (+warn/count) when a due rollover cannot start a new
+        submap because the pool is saturated. ``n`` overrides the live
+        submap count (step_batch tracks it locally within a window)."""
+        if (self.n_submaps if n is None else n) < self.cfg.max_submaps:
+            return False
+        self.dropped_submaps += 1
+        warnings.warn(
+            f"submap pool saturated ({self.cfg.max_submaps}); rollover "
+            f"dropped (total {self.dropped_submaps}) — frames continue "
+            f"into the last submap; raise MapperConfig.max_submaps",
+            RuntimeWarning, stacklevel=3)
+        return True
+
+    def _warn_overflow(self, wm: int, dropped: int) -> None:
+        if dropped > self._warned_dropped:
+            warnings.warn(
+                f"window working set overflowed: {dropped} block-updates "
+                f"dropped (union watermark {wm} > capacity "
+                f"{self.cfg.integrator.window_union_blocks}) — raise "
+                "TsdfIntegratorConfig.window_union_blocks to at least the "
+                "watermark", RuntimeWarning, stacklevel=3)
+            self._warned_dropped = dropped
+
+    def _consume_pending_stats(self) -> None:
+        """Read the PREVIOUS window's counters (their async copy has
+        landed by now) and warn on new drops."""
+        if self._pending_stats is None:
+            return
+        host, event = self._pending_stats
+        self._pending_stats = None
+        if event is not None:
+            event.synchronize()
+        self._warn_overflow(int(host[0]), int(host[1]))
+
+    def _schedule_stats_check(self) -> None:
+        pair = torch.stack([self.state.union_watermark,
+                            self.state.dropped_union_blocks])
+        if pair.is_cuda:
+            host = torch.empty(2, dtype=pair.dtype, pin_memory=True)
+            host.copy_(pair, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            host, event = pair.clone(), None
+        self._pending_stats = (host, event)
+
+    def union_saturation(self) -> Tuple[int, int]:
+        """Host readback of (union_watermark, dropped_union_blocks); warns
+        when updates have been dropped. Call at control rate."""
+        self._pending_stats = None
+        wm = int(self.state.union_watermark)
+        dropped = int(self.state.dropped_union_blocks)
+        self._warn_overflow(wm, dropped)
+        return wm, dropped
+
+    # -- frames ----------------------------------------------------------
+
+    def _tensor(self, x) -> Tensor:
+        """A frame input on the mapper's device as f32 (no copy if it is
+        already there)."""
+        if isinstance(x, Tensor):
+            return x.to(self.device, torch.float32)
+        return torch.from_numpy(np.array(x, np.float32)).to(
+            self.device, non_blocking=True)
+
+    def step(self, depth, color, T_odom_cam, t: float) -> bool:
+        """Roll the submap if its interval elapsed, then integrate one
+        frame. Returns whether a submap was started."""
+        if not self.mapping_enabled:
+            return False
+        self._consume_pending_stats()
+        started = False
+        T_dev = self._tensor(T_odom_cam)
+        t_dev = torch.full((), t, dtype=torch.float32, device=self.device)
+        if (self.n_submaps == 0
+                or t - self.last_start >= self.cfg.submap_interval - 1e-6):
+            if self._rollover_sat():
+                self.last_start = t
+            else:
+                start_submap(self.cfg, self.state, T_dev, t_dev)
+                self.n_submaps += 1
+                self.last_start = t
+                started = True
+                self._mirror_start(T_odom_cam, t)
+        integrate(self.cfg, self.state, self._tensor(depth),
+                  None if color is None else self._tensor(color), T_dev,
+                  t_dev)
+        self._mirror_frame(T_odom_cam, t)
+        return started
+
+    def step_batch(self, depths, colors, T_odom_cams, ts) -> int:
+        """Process a window of F frames: rollover boundaries are computed
+        on the host from the timestamps (no device read), and the frames
+        between boundaries go through one integrate_batch each. Equal to F
+        step() calls. Returns the number of submaps started."""
+        if not self.mapping_enabled:
+            return 0
+        self._consume_pending_stats()   # previous window's counters
+        # poses for the mirror — host arrays only (a device input
+        # disables the mirror rather than paying a readback per window)
+        T_host = (self._mirror_host_pose(T_odom_cams)
+                  if self.mirror_enabled else None)
+        # rollover bookkeeping in FLOAT64: an f32 downcast loses ~4 µs of
+        # resolution per minute of mission time, so `t - last_start >=
+        # interval - 1e-6` would start failing at exact window boundaries
+        # and fire a rollover one frame late; the device still gets f32
+        ts = np.asarray(ts, np.float64)
+        F = len(ts)
+        starts = []          # frame indices where a rollover fires
+        last = self.last_start
+        n = self.n_submaps
+        for i in range(F):
+            if n == 0 or ts[i] - last >= self.cfg.submap_interval - 1e-6:
+                last = float(ts[i])
+                if not self._rollover_sat(n):   # saturated: warn+count,
+                    starts.append(i)            # frames go to the last
+                    n += 1                      # submap
+        segments = []        # (rollover frame or None, lo, hi)
+        if not starts or starts[0] > 0:
+            segments.append((None, 0, starts[0] if starts else F))
+        bounds = starts + [F]
+        for b, e in zip(bounds[:-1], bounds[1:]):
+            segments.append((b, b, e))
+
+        depths = self._tensor(depths)
+        colors = None if colors is None else self._tensor(colors)
+        T_dev = self._tensor(T_odom_cams)
+        ts_dev = self._tensor(ts)
+        for start_i, lo, hi in segments:
+            if start_i is not None:
+                start_submap(self.cfg, self.state, T_dev[start_i],
+                             ts_dev[start_i])
+                self.n_submaps = min(self.n_submaps + 1,
+                                     self.cfg.max_submaps)
+                self.last_start = float(ts[start_i])
+                if T_host is not None:
+                    self._mirror_start(T_host[start_i], float(ts[start_i]))
+            if hi > lo:
+                integrate_batch(self.cfg, self.state, depths[lo:hi],
+                                None if colors is None else colors[lo:hi],
+                                T_dev[lo:hi], ts_dev[lo:hi])
+                if T_host is not None:
+                    for i in range(lo, hi):
+                        self._mirror_frame(T_host[i], float(ts[i]))
+        # persist the interval clock even when the last rollover(s) were
+        # saturation-DROPPED, so _rollover_sat fires once per interval
+        self.last_start = last
+        self._windows_done += 1
+        if (self.stats_check_windows > 0
+                and self._windows_done % self.stats_check_windows == 0):
+            self._schedule_stats_check()
+        return len(starts)

@@ -1,0 +1,62 @@
+"""Device-side counterparts of JAX's ``.at[idx].set(val, mode="drop")``.
+
+torch has no drop mode, and filtering lanes with a boolean mask would read
+the mask back to the host. These helpers keep every write on the device:
+
+* ``scatter_drop`` sends dropped lanes to a sentinel row allocated one past
+  the end and sliced off (for small arrays: it copies ``dst``);
+* ``put_row`` writes one row at a device index in place, writing the row's
+  own value back when the index is out of range;
+* ``where_fields`` selects between two dataclasses of tensors field by
+  field (the counterpart of a ``lax.cond`` over a pytree).
+
+``f32_reciprocal`` serves division by a constant: XLA rewrites ``x / c``
+into ``x * (1/c)`` with the reciprocal rounded to f32, and torch does the
+same on CUDA but divides exactly on the CPU. Writing the multiply out
+makes the reference, the CPU and the GPU round alike.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+Tensor = torch.Tensor
+
+
+def f32_reciprocal(c: float) -> float:
+    """1/c rounded to f32 (exactly representable as the Python float)."""
+    return float(np.float32(1.0) / np.float32(c))
+
+
+def scatter_drop(dst: Tensor, idx: Tensor, val: Tensor) -> Tensor:
+    """Copy of ``dst`` with ``dst[idx] = val``; lanes with ``idx ==
+    dst.shape[0]`` are dropped. In-range targets must be unique."""
+    n = dst.shape[0]
+    out = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
+    out[idx.long()] = val
+    return out[:n]
+
+
+def put_row(dst: Tensor, k: Tensor, val) -> None:
+    """In place ``dst[k] = val`` for a 0-d device index ``k``; a no-op when
+    ``k`` is out of range."""
+    n = dst.shape[0]
+    inside = k < n
+    kc = torch.clamp(k, max=n - 1).long().reshape(1)
+    cur = dst.index_select(0, kc)
+    if isinstance(val, Tensor):
+        val = val.to(dst.dtype).expand_as(cur[0])
+    else:                       # a Python scalar: a fill, no host copy
+        val = cur.new_full(cur.shape[1:], val)
+    dst.index_copy_(0, kc, torch.where(inside, val[None], cur))
+
+
+def where_fields(pred: Tensor, a, b):
+    """Dataclass of tensors taking each field from ``a`` where ``pred``
+    (a 0-d bool tensor) holds, else from ``b``."""
+    return type(a)(**{f.name: torch.where(pred, getattr(a, f.name),
+                                          getattr(b, f.name))
+                      for f in dataclasses.fields(a)})

@@ -6,8 +6,10 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 It drives the port's per-robot integration path (HostMapper.step_batch →
-integrate_batch → allocation pass + CUDA block-update kernel) and fails
-(nonzero exit, no result line) if anything is wrong:
+integrate_batch → allocation pass + CUDA block-update kernel K1) and its
+multi-robot loop-detection path (LoopDetector → features → the CUDA
+Hamming kernel K2 → RANSAC) and fails (nonzero exit, no result line) if
+anything is wrong:
 
   1. device    — require a CUDA GPU; print nvidia-smi's name and power limit
   2. build     — build the kernel library from csrc/ with nvcc (sm_90a)
@@ -23,20 +25,47 @@ integrate_batch → allocation pass + CUDA block-update kernel) and fails
                  21.5 GB of pools): 30 frames at 1 s with the 10 s submap
                  interval roll over at t = 0, 10, 20
   6. times     — tsdf_benchmark frames/s, and the kernel alone vs its twin
+  7. K2        — hamming_match_topk at (128, 96), (384, 200) and self-match,
+                 and the batched masked matcher at the endurance point
+                 (8 queries × 512 slots × 384²) and the stock point
+                 (4 × 2048 × 512²), ~90% valid: kernel ≡ plain version
+                 (and ≡ the ±1 bf16 matmul route) on every integer output;
+                 CUDA-event times of the three at the main path's shapes
+  8. main path — the endurance detector (tools/endurance_run.py: K = 384,
+                 512 slots, 8-frame sub-batches, 64-slot match chunks) on
+                 two robots' 640×480 frames rendered on the card, through
+                 add_keyframes_batch and add_keyframe: a 0 → 1 MapFusion
+                 within 0.08 m of the ground truth, no same-robot message,
+                 K2 launched; host syncs per sub-batch counted
+  9. state     — the stock LoopDetectorConfig (2048 slots × 512 keypoints,
+                 32 MB descriptor pool) loaded through utils.interop and
+                 filled past capacity through ingest_keypoints: evictions,
+                 per-client balance, a revisit still detected
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the card's nvidia-smi name and power limit,
+the one before it the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import json
+import subprocess
 import time
+import warnings
 
 import numpy as np
 import torch
 
 EVENT_REPS = 50
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM (on-chip-measurement guide)
+F32_FLOPS = 67e12              # f32 outside the tensor cores
+BF16_FLOPS = 989e12            # dense bf16 tensor cores
+POPC_PER_CLOCK_PER_SM = 16     # CUDA C++ Programming Guide, cc 9.0
+BIG = 10_000                   # features.match_descriptors' mask value
+# K2's operating points: (queries per sub-batch, pool slots, keypoints,
+# slots per kernel launch) of the endurance and the stock detector
+K2_POINTS = {"endurance": (8, 512, 384, 64), "stock": (4, 2048, 512, 128)}
 
 
 def _time_ms(fn, reps: int = EVENT_REPS) -> float:
@@ -52,6 +81,24 @@ def _time_ms(fn, reps: int = EVENT_REPS) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.split()[0]) * 1e6
+
+
+def _bound_ms(n_bytes: float, ops: float, ops_per_s: float):
+    """(least time in ms, "bytes" or "operations") for moving n_bytes at
+    the HBM rate and doing ops at ops_per_s."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / ops_per_s
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_kernel_vs_twin(cfg, device, depths, colors, traj):
@@ -195,6 +242,271 @@ def phase_state_size(device, depths, colors, traj):
     del hm, st, col
 
 
+def _words(gen, *shape, device):
+    """Random descriptor words (int32 bit patterns) on the card."""
+    return torch.randint(-2 ** 31, 2 ** 31, (*shape, 8), dtype=torch.int32,
+                         generator=gen, device=device)
+
+
+def _matmul_route(a, av, b, bv):
+    """What the JAX package's production matcher computes
+    (features.hamming_matrix: one ±1 bf16 matmul, then min/argmin)."""
+    from coxgraph_tpu_torch.ops import features as ft
+
+    D = ft.hamming_matrix(a[:, None], b)
+    D = torch.where(av[:, None, :, None] & bv[:, :, None, :], D, BIG)
+    d1, i1 = torch.min(D, dim=-1)
+    d2 = torch.min(D.scatter(-1, i1[..., None], BIG), dim=-1).values
+    return d1, i1.to(torch.int32), d2, torch.argmin(D, dim=-2).to(
+        torch.int32)
+
+
+def _k2_bound(B, cap, ka, kb, clock_hz, n_sms):
+    popc = B * cap * ka * kb * 8
+    n_bytes = (B * ka * 33 + cap * kb * 33          # words + valid bytes
+               + 4 * B * cap * (3 * ka + kb))       # d1, i1, d2, best_a
+    return _bound_ms(n_bytes, popc,
+                     POPC_PER_CLOCK_PER_SM * n_sms * clock_hz)
+
+
+def phase_hamming(device, ident):
+    """Phase 7 → K2's record (max_abs_err, times, bound at the main
+    path's launch shape)."""
+    from coxgraph_tpu_torch.ops import cuda_hamming as ch
+
+    g = torch.Generator(device=device).manual_seed(0)
+    max_err = 0
+
+    def compare(got, want, what):
+        nonlocal max_err
+        for x, y, name in zip(got, want, ("d1", "i1", "d2", "best_a")):
+            assert x.dtype == y.dtype == torch.int32, (what, name)
+            err = int((x.long() - y.long()).abs().max())
+            max_err = max(max_err, err)
+            assert err == 0, (what, name, err)
+
+    for ka, kb in ((128, 96), (384, 200), (128, None)):
+        da = _words(g, ka, device=device)
+        db = da if kb is None else _words(g, kb, device=device)
+        got = ch.hamming_match_topk(da, db)
+        compare(got, ch.hamming_match_topk_reference(da, db),
+                f"topk {ka}x{kb}")
+        if kb is None:
+            assert int(got[0].max()) == 0
+            assert torch.equal(got[1].long(),
+                               torch.arange(ka, device=device))
+    print("[7] hamming_match_topk ≡ plain at (128, 96), (384, 200), "
+          "self-match (128)")
+
+    clock, n_sms = _sm_clock_hz(), torch.cuda.get_device_properties(
+        0).multi_processor_count
+    record = {}
+    for point, (B, cap, K, chunk) in K2_POINTS.items():
+        a = _words(g, B, K, device=device)
+        b = _words(g, 1, cap, K, device=device)
+        b[0, :B, : K // 2] = a[:, : K // 2]          # revisits
+        b[0, B:2 * B] = b[0, :B]                     # tied slots
+        av = torch.rand(B, K, generator=g, device=device) < 0.9
+        bv = torch.rand(1, cap, K, generator=g, device=device) < 0.9
+        got = ch.match_topk(a, av, b, bv, BIG, BIG)
+        step = 128
+        for s0 in range(0, cap, step):
+            sl = slice(s0, s0 + step)
+            part = tuple(x[:, sl] for x in got)
+            want = ch.match_topk_reference(a, av, b[:, sl], bv[:, sl],
+                                           BIG, BIG)
+            compare(part, want, f"{point} slots {s0}")
+            compare(part, _matmul_route(a, av, b[:, sl], bv[:, sl]),
+                    f"{point} matmul slots {s0}")
+        n_match = int((got[0] <= 64).sum())
+        del got, want
+        torch.cuda.empty_cache()
+        # one launch at the main path's shape, and one over the whole pool
+        bc, bvc = b[:, :chunk].contiguous(), bv[:, :chunk].contiguous()
+        times = {}
+        for tag in ("plain", "kernel", "matmul", "kernel", "plain",
+                    "matmul"):
+            fn = {"kernel": lambda: ch.match_topk(a, av, bc, bvc, BIG, BIG),
+                  "plain": lambda: ch.match_topk_reference(
+                      a, av, bc, bvc, BIG, BIG),
+                  "matmul": lambda: _matmul_route(a, av, bc, bvc)}[tag]
+            times.setdefault(tag, []).append(
+                _time_ms(fn, 20 if tag == "kernel" else 5))
+        pool_ms = _time_ms(lambda: ch.match_topk(a, av, b, bv, BIG, BIG),
+                           10)
+        bound, by = _k2_bound(B, chunk, K, K, clock, n_sms)
+        pool_bound, _ = _k2_bound(B, cap, K, K, clock, n_sms)
+        tc_floor = B * cap * K * K * 256 * 2 / BF16_FLOPS * 1e3
+        k_ms, p_ms, m_ms = (min(times[t]) for t in ("kernel", "plain",
+                                                    "matmul"))
+        print(f"[7] {point}: {B} queries x {cap} slots x {K}^2, "
+              f"{n_match} rows with d1 <= 64; one launch of {chunk} slots "
+              f"(the main path's): kernel {k_ms * 1e3:.1f} us "
+              f"{times['kernel']}, plain {p_ms * 1e3:.1f} us "
+              f"{times['plain']}, matmul route {m_ms * 1e3:.1f} us "
+              f"{times['matmul']}, bound {bound * 1e3:.1f} us ({by}); "
+              f"whole pool in one launch {pool_ms * 1e3:.1f} us vs popc "
+              f"floor {pool_bound * 1e3:.1f} us, tensor-core floor "
+              f"{tc_floor * 1e3:.1f} us (SM clock {clock / 1e9:.3f} GHz, "
+              f"{n_sms} SMs) — {ident}")
+        record[point] = dict(ms=k_ms, plain_ms=p_ms, matmul_ms=m_ms,
+                             bound_ms=bound, bound_by=by)
+        del a, b, av, bv, bc, bvc
+        torch.cuda.empty_cache()
+    return max_err, record["endurance"]
+
+
+def _ingest_two_robots(det, frames, sync_log=None):
+    """Robot 0 through add_keyframes_batch (one 8-frame sub-batch, the
+    rest on the single path), robot 1's first 8 frames through
+    add_keyframes_batch, its last ones through add_keyframe → (messages,
+    robot 1's sub-batch wall ms). Keyframes are KF_DT apart: a robot's
+    whole clip lies within min_time_separation, so no same-robot pair is
+    eligible."""
+    from coxgraph_tpu_torch.eval.benchmarks import KF_DT
+
+    items = [[(r, (100.0 if r else 0.0) + KF_DT * i, c, d)
+              for i, (d, c) in enumerate(frames[r])] for r in (0, 1)]
+    msgs = det.add_keyframes_batch(items[0])
+    assert msgs == [], "robot 0 alone closed a loop"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if sync_log is not None:
+        torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            msgs = det.add_keyframes_batch(items[1][:8])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    if sync_log is not None:
+        sync_log.extend(f"{w.filename.split('/')[-1]}:{w.lineno}"
+                        for w in rec if "synchroniz" in str(w.message))
+    for it in items[1][8:]:
+        msgs = msgs + det.add_keyframe(*it)
+    return msgs, wall
+
+
+def phase_loop_detection(device, ident):
+    """Phase 8 → K2's launches on the main path."""
+    from coxgraph_tpu_torch.core import geometry as geo
+    from coxgraph_tpu_torch.eval import benchmarks as bm
+    from coxgraph_tpu_torch.frontends import loop_detector as ld
+    from coxgraph_tpu_torch.ops import cuda_hamming
+
+    cfg = bm.detector_config()
+    t0 = time.perf_counter()
+    intr, trajs, frames = bm.two_robot_clip(device)
+    torch.cuda.synchronize()
+    print(f"[8] rendered 2 x {len(frames[0])} frames {intr.width}x"
+          f"{intr.height} on the card in {time.perf_counter() - t0:.2f} s")
+    # warm-up on a throwaway detector (cuBLAS/cuSOLVER handles, caches)
+    _ingest_two_robots(ld.LoopDetector(intr, cfg, device=device), frames)
+
+    det = ld.LoopDetector(intr, cfg, device=device)
+    syncs = []
+    cuda_hamming.LAUNCHES = 0
+    t0 = time.perf_counter()
+    msgs, sub_ms = _ingest_two_robots(det, frames, syncs)
+    wall = time.perf_counter() - t0
+    launches = cuda_hamming.LAUNCHES
+    pairs = sorted({(m.from_client, m.from_time, m.to_client, m.to_time)
+                    for m in msgs})
+    errs = []
+    for m in msgs:
+        assert m.from_client != m.to_client, "same-robot message"
+        assert (m.from_client, m.to_client) == (0, 1), (m.from_client,
+                                                        m.to_client)
+        T_true = geo.relative(
+            trajs[0][int(round(m.from_time / bm.KF_DT))],
+            trajs[1][int(round((m.to_time - 100.0) / bm.KF_DT))])
+        err = geo.se3_log(geo.relative(
+            torch.from_numpy(m.T_from_to).to(device), T_true))
+        errs.append(float(torch.linalg.norm(err[3:])))
+        assert np.isfinite(m.T_from_to).all() and m.sqrt_info[0, 0] == 100.0
+    print(f"[8] endurance detector: {det.total_keyframes} keyframes in "
+          f"{wall:.2f} s, {len(msgs)} MapFusion messages, pairs {pairs}, "
+          f"translation error max {max(errs, default=float('nan')):.4f} m, "
+          f"K2 launches {launches}; robot 1's 8-frame sub-batch "
+          f"{sub_ms:.1f} ms wall with {len(syncs)} host sync(s) "
+          f"{sorted(set(syncs))} — {ident}")
+    assert msgs, "no cross-robot loop closure"
+    assert max(errs) < 0.08, errs
+    assert det.total_keyframes == 2 * len(frames[0])
+    assert launches > 0
+    return launches
+
+
+def phase_detector_state(device, ident):
+    """Phase 9: the stock LoopDetectorConfig filled past capacity."""
+    from coxgraph_tpu_torch.frontends import loop_detector as ld
+    from coxgraph_tpu_torch.frontends import synthetic as syn
+    from coxgraph_tpu_torch.ops import features as ft
+    from coxgraph_tpu_torch.utils import interop
+
+    cfg = ld.LoopDetectorConfig()
+    cap, K = cfg.max_keyframes, cfg.features.max_keypoints
+    det = ld.LoopDetector(syn.PinholeIntrinsics(), cfg, device=device)
+    pool_mb = det._db_desc.numel() * 4 / 1e6
+    n_pre, n_ingest = cap - 64, 256       # 192 ingests past capacity
+    rng = np.random.default_rng(9)
+    arrays = interop.detector_state_to_numpy(det)
+    arrays["db_desc"][:n_pre] = rng.integers(
+        0, 2 ** 32, (n_pre, K, 8), dtype=np.uint64).astype(np.uint32)
+    arrays["db_valid"][:n_pre] = True
+    arrays["db_hdep"][:n_pre] = True
+    arrays["db_pcam"][:n_pre] = rng.uniform(
+        -2, 2, (n_pre, K, 3)).astype(np.float32)
+    arrays["slot_client"][:n_pre] = np.arange(n_pre) % 2
+    arrays["slot_t"][:n_pre] = np.arange(n_pre, dtype=np.float64)
+    arrays["free"] = np.arange(cap - 1, n_pre - 1, -1)
+    for name in ("n_keyframes", "total_keyframes"):
+        arrays[name] = np.array(n_pre)
+    interop.load_detector_state(det, arrays)
+    g = torch.Generator(device=device).manual_seed(9)
+
+    def kp(desc=None, pts=None):
+        desc = _words(g, K, device=device) if desc is None else desc
+        pts = (torch.rand(K, 3, generator=g, device=device) * 4 - 2
+               if pts is None else pts)
+        ones = torch.ones(K, dtype=torch.bool, device=device)
+        return ft.Keypoints(uv=torch.zeros(K, 2, device=device),
+                            response=ones.float(), valid=ones, desc=desc,
+                            p_cam=pts, has_depth=ones)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        for i in range(n_pre, n_pre + n_ingest):
+            det.ingest_keypoints(i % 2, float(i), kp())
+    torch.cuda.synchronize()
+    per_ms = (time.perf_counter() - t0) * 1e3 / n_ingest
+    sat = [w for w in rec if "keyframe pool saturated" in str(w.message)]
+    per = [sum(k.client_id == c for k in det.keyframes) for c in (0, 1)]
+    t_end = float(n_pre + n_ingest)
+    base = kp()
+    det.ingest_keypoints(0, t_end, base)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        msgs = det.ingest_keypoints(1, t_end + 1.0, base)
+    rev = [m for m in msgs if m.from_time == t_end]
+    err = (float(np.linalg.norm(rev[0].T_from_to
+                                - np.array([1, 0, 0, 0, 0, 0, 0])))
+           if rev else float("nan"))
+    print(f"[9] stock detector: pool {cap} x {K} ({pool_mb:.1f} MB of "
+          f"descriptors), {n_pre} slots loaded, {n_ingest} ingests at "
+          f"{per_ms:.2f} ms each, dropped {det.dropped_keyframes}, "
+          f"per-client {per}, saturation warnings {len(sat)}, revisit "
+          f"messages {len(msgs)} (|T - I| {err:.2e}) — {ident}")
+    assert det.n_keyframes == cap and len(det.keyframes) == cap
+    assert det.dropped_keyframes == n_pre + n_ingest + 2 - cap
+    assert sat and abs(per[0] - per[1]) <= 1, per
+    assert rev and rev[0].from_client == 0 and err < 0.05, msgs
+
+
 def main() -> None:
     from coxgraph_tpu_torch import _build, runtime
     from coxgraph_tpu_torch.eval import benchmarks as bm
@@ -243,6 +555,13 @@ def main() -> None:
     kernel_ms = min(timings["kernel"])
     plain_ms = min(timings["plain"])
     n_live = int(args[2].sum())
+    # K1's least time: each live block's 5 pool rows read and written
+    # once, the depth and colour images and the lane arrays read once;
+    # ~75 f32 operations per voxel of a live block
+    v3 = spec.voxels_per_side ** 3
+    k1_bytes = (n_live * (2 * 5 * v3 * 4 + 12) + args[1].shape[0] * 5
+                + 4 * 4 * intr.height * intr.width + 28)
+    k1_bound, k1_by = _bound_ms(k1_bytes, 75 * n_live * v3, F32_FLOPS)
     print(f"[6] block update at the bench point ({args[1].shape[0]} lanes, "
           f"{n_live} live blocks): kernel {kernel_ms * 1e3:.1f} us/call "
           f"{timings['kernel']}, torch twin {plain_ms * 1e3:.1f} us/call "
@@ -262,6 +581,18 @@ def main() -> None:
     fps = bm.tsdf_benchmark(depths, colors, traj)
     print(f"[6] tsdf_integration_fps {fps:.2f} frames/s (4 windows x "
           f"{depths.shape[0]} frames, 640x480, 5 cm) — {ident}")
+    del depths, colors, traj
+    torch.cuda.empty_cache()
+
+    # ---- 7. K2 vs its plain version ---------------------------------------
+    k2_err, k2 = phase_hamming(device, ident)
+
+    # ---- 8. loop-detection main path ------------------------------------
+    k2_launches = phase_loop_detection(device, ident)
+    torch.cuda.empty_cache()
+
+    # ---- 9. stock detector state -------------------------------------------
+    phase_detector_state(device, ident)
 
     print(json.dumps({"kernels": [{
         "name": "tsdf_update_blocks",
@@ -272,6 +603,22 @@ def main() -> None:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "library_ms": None,
+    }, {
+        "name": "hamming_topk",
+        "route": "cuda",
+        "source": "coxgraph_tpu_torch/csrc/hamming_match.cu",
+        "replaces": "coxgraph_tpu/ops/pallas_kernels.py:36",
+        "launches": k2_launches,
+        "max_abs_err": k2_err,
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": None,
+        "matmul_ms": k2["matmul_ms"],
     }]}))
     print(ident)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper (sm_90a)
-into one shared library with a plain C interface, loaded with ``ctypes``.
+The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper (sm_90a),
+one process per source started together, and linked into one shared
+library with a plain C interface, loaded with ``ctypes``.
 The build happens at first use, from the repository's sources only, into
 ``csrc/build/`` (git-ignored), and is cached by a hash of the sources and
 the flags: a second process reuses the library, and any source change
@@ -27,10 +28,10 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libcoxgraph_tpu_torch.so")
 LOG_PATH = os.path.join(BUILD_DIR, "build.log")
-SOURCES = ("tsdf_update.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+SOURCES = ("tsdf_update.cu", "hamming_match.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false",
+                              "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _lib = None
 last_build_seconds = 0.0
@@ -52,7 +53,7 @@ def nvcc_path() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
     for name in SOURCES:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
@@ -71,17 +72,36 @@ def build() -> str:
                 last_build_seconds = 0.0
                 return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(os.path.join(CSRC, s) for s in SOURCES)]
+    nvcc = nvcc_path()
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, f"{s}.{tag}.o") for s in SOURCES]
+    # one nvcc per source, all started together, then one link
+    cmds = [[nvcc, *COMPILE_FLAGS, "-c", "-o", o, os.path.join(CSRC, s)]
+            for s, o in zip(SOURCES, objs)]
+    tmp = f"{LIB_PATH}.{tag}"
+    link = [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    runs = []
+    for c, p in zip(cmds, procs):
+        out, err = p.communicate()
+        runs.append((c, p.returncode, out, err))
+    if all(rc == 0 for _, rc, _, _ in runs):
+        proc = subprocess.run(link, capture_output=True, text=True)
+        runs.append((link, proc.returncode, proc.stdout, proc.stderr))
     last_build_seconds = time.perf_counter() - t0
     with open(LOG_PATH, "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
+        for c, _, out, err in runs:
+            f.write(" ".join(c) + "\n" + out + err)
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    failed = [(c, rc, err) for c, rc, _, err in runs if rc != 0]
+    if failed:
+        c, rc, err = failed[0]
+        raise RuntimeError(f"nvcc failed ({rc}) on {c[-1]}:\n{err[-4000:]}")
     os.replace(tmp, LIB_PATH)
     with open(stamp, "w") as f:
         f.write(digest)
@@ -102,6 +122,11 @@ def load() -> ctypes.CDLL:
         + [F] * 11        # fx fy cx cy min max tau 1/(tau/2) max_w vs bs
         + [I, I, P])      # use_dropoff, use_distance_weight, stream
     lib.cox_tsdf_update_blocks.restype = I
+    lib.cox_hamming_topk.argtypes = (
+        [P] * 8           # a, a_valid, b, b_valid, d1, i1, d2, best_a
+        + [I] * 7         # n_q, cap, ka, kb, b_batched, big, excl
+        + [P])            # stream
+    lib.cox_hamming_topk.restype = I
     lib.cox_error_string.argtypes = [I]
     lib.cox_error_string.restype = ctypes.c_char_p
     _lib = lib

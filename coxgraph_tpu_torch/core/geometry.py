@@ -174,6 +174,69 @@ def relative(Ta: Tensor, Tb: Tensor) -> Tensor:
     return compose(inverse(Ta), Tb)
 
 
+def so3_exp(w: Tensor) -> Tensor:
+    """Axis-angle (...,3) → unit quaternion (...,4). Taylor-safe near 0."""
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    half = 0.5 * theta
+    small = theta2 < 1e-8
+    k = torch.where(small, 0.5 - theta2 / 48.0, torch.sin(half) / theta)
+    qw = torch.where(small, 1.0 - theta2 / 8.0, torch.cos(half))
+    return quat_normalize(torch.cat([qw, k * w], dim=-1))
+
+
+def so3_log(q: Tensor) -> Tensor:
+    """Unit quaternion (...,4) → axis-angle (...,3). Taylor-safe near id."""
+    q = torch.where(q[..., :1] < 0, -q, q)  # shortest arc
+    qw = torch.clamp(q[..., :1], -1.0, 1.0)
+    qv = q[..., 1:4]
+    sin_half = torch.linalg.norm(qv, dim=-1, keepdim=True)
+    half = torch.atan2(sin_half, qw)
+    small = sin_half < 1e-6
+    k = torch.where(small, 2.0 / torch.clamp(qw, min=_EPS),
+                    2.0 * half / torch.clamp(sin_half, min=_EPS))
+    return k * qv
+
+
+def _so3_left_jacobian_terms(theta2: Tensor):
+    """Coefficients (A, B) with V = I + A [w]x + B [w]x^2 (left Jacobian)."""
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    small = theta2 < 1e-8
+    A = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2)
+    B = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta))
+    return A, B
+
+
+def se3_exp(xi: Tensor) -> Tensor:
+    """Tangent (...,6) [w, v] → transform (...,7). ``[w]x v`` is written
+    as the cross product ``w × v``."""
+    w, v = xi[..., :3], xi[..., 3:6]
+    q = so3_exp(w)
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
+    A, B = _so3_left_jacobian_terms(theta2)
+    Wv = _cross(w, v)
+    return make(q, v + A * Wv + B * _cross(w, Wv))
+
+
+def se3_log(T: Tensor) -> Tensor:
+    """Transform (...,7) → tangent (...,6) [w, v]."""
+    w = so3_log(rotation(T))
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp(theta2, min=_EPS * _EPS))
+    small = theta2 < 1e-8
+    half = 0.5 * theta
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half * torch.cos(half)
+         / torch.clamp(torch.sin(half), min=_EPS)) / theta2)
+    t = translation(T)
+    Wt = _cross(w, t)
+    v = t - 0.5 * Wt + cot_term * _cross(w, Wt)
+    return torch.cat([w, v], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # NumPy twins for host-side control code
 # ---------------------------------------------------------------------------

@@ -1,20 +1,25 @@
 """TSDF integration benchmark — port of the TSDF half of
-``coxgraph_tpu.eval.benchmarks``.
+``coxgraph_tpu.eval.benchmarks`` — and the loop-detection operating point.
 
-The measurement is the per-robot streaming hot path
+The integration measurement is the per-robot streaming hot path
 (``mapper.integrate_batch``) at the reference operating point: 640×480
 RGB-D, 5 cm voxels, 16³ blocks, 0.15 m truncation, 10 m max range, on a
 30-frame orbit clip that the port renders itself on the given device.
+
+The loop-detection point is the endurance run's detector
+(``detector_config``) on two robots' 640×480 clips (``two_robot_clip``).
 """
 
 from __future__ import annotations
 
+import math
 import time
 
 import torch
 
 N_FRAMES = 30
 SCALE = 1.0  # 640x480
+KF_DT = 0.5  # s between a robot's keyframes in the two-robot clip
 
 
 def _mapper_config():
@@ -90,3 +95,34 @@ def tsdf_benchmark(depths, colors, traj, n_frames: int | None = None,
         sm.integrate_batch(cfg, state, depths, colors, traj, ts)
     fence(state)
     return n * windows / (time.perf_counter() - t0)
+
+
+def detector_config():
+    """The loop detector of the JAX package's endurance run
+    (tools/endurance_run.py:239-252): K = 384, 512 slots, 8-frame
+    sub-batches, 64 slots per match step."""
+    from ..frontends import loop_detector as ld
+    from ..ops import features as ft
+
+    return ld.LoopDetectorConfig(
+        features=ft.FeatureConfig(max_keypoints=384),
+        min_match_score=25, min_inliers=15, keyframe_stride=0.4,
+        min_time_separation=6.0, sqrt_info=100.0, max_keyframes=512,
+        batch_size=8, match_chunk=64)
+
+
+def two_robot_clip(device, n_frames: int = 10):
+    """Two robots orbiting the default scene (tests/test_loop_detector.py's
+    orbits): robot 0 sweeps π/2 from angle 0, robot 1 π/2 from -0.15 rad.
+    Rendered on ``device`` at the bench resolution → (intrinsics, [traj
+    (n, 7)] × 2, [[(depth (H, W), color (H, W, 3))] × n] × 2)."""
+    from ..frontends import synthetic as syn
+
+    scene = syn.default_scene(device)
+    intr = syn.PinholeIntrinsics().scaled(SCALE)
+    trajs = [syn.orbit_trajectory(n_frames, scene.room_center, radius=2.5,
+                                  sweep=math.pi / 2, start_angle=a)
+             for a in (0.0, -0.15)]
+    frames = [[syn.render_depth(scene, intr, T) for T in traj]
+              for traj in trajs]
+    return intr, trajs, frames

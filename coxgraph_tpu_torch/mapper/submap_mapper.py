@@ -28,6 +28,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import runtime
 from ..core import geometry as geo
 from ..core import voxel as vx
 from ..frontends.synthetic import PinholeIntrinsics
@@ -256,15 +257,17 @@ def consume_mesh_dirty(state: MapperState, k) -> Tuple[Tensor, MapperState]:
 class HostMapper:
     """Host-side wrapper that mirrors the rollover scalars (submap count,
     active start time) so the per-frame loop issues ZERO device→host
-    reads. ``step`` and ``step_batch`` update ``self.state`` in place."""
+    reads. ``step`` and ``step_batch`` update ``self.state`` in place.
+    Without a state or a device it builds its state on the card
+    (``runtime.require_cuda()``); the CPU is used only when asked for."""
 
     def __init__(self, cfg: MapperConfig,
                  state: Optional[MapperState] = None, device=None):
-        if state is None and device is None:
-            raise ValueError("HostMapper needs a state or a device")
+        # a new state lives on the card unless the caller asks for
+        # another device (runtime.require_cuda raises without one)
         self.cfg = cfg
-        self.state = state if state is not None else create_mapper(cfg,
-                                                                   device)
+        self.state = state if state is not None else create_mapper(
+            cfg, runtime.require_cuda() if device is None else device)
         self.device = self.state.frame_count.device
         self.n_submaps = int(self.state.collection.num_submaps)
         self.last_start = (

@@ -34,7 +34,7 @@ import torch
 from ..core import geometry as geo
 from ..core import voxel as vx
 from ..frontends.synthetic import PinholeIntrinsics
-from ..utils.tensorops import f32_reciprocal
+from ..utils.tensorops import check_operand as _check, f32_reciprocal
 
 Tensor = torch.Tensor
 
@@ -120,18 +120,6 @@ def update_blocks_reference(spec: vx.VoxelGridSpec, cfg,
             old_c)
         new_c = torch.where(live[:, None], new_c, old_c)
         c_pool.index_copy_(0, dst, new_c.reshape(K, 3 * v3)[src])
-
-
-def _check(name: str, t: Tensor, dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def update_blocks(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,

@@ -9,7 +9,12 @@ and returns its leaves unconverted; the caller turns JAX arrays into numpy
 
 ``config_from`` copies any object carrying the JAX configs' attribute
 names (MapperConfig, VoxelGridSpec, TsdfIntegratorConfig,
-PinholeIntrinsics) into the port's frozen dataclasses.
+PinholeIntrinsics, FeatureConfig, LoopDetectorConfig) into the port's
+frozen dataclasses.
+
+Keypoints and a loop detector's database cross with their descriptors as
+the uint32 words of the JAX package; in the port they are int32 tensors
+holding the same bit patterns.
 """
 
 from __future__ import annotations
@@ -21,8 +26,10 @@ import numpy as np
 import torch
 
 from ..core import voxel as vx
+from ..frontends import loop_detector as ld
 from ..frontends import synthetic as syn
 from ..mapper import submap_mapper as sm
+from ..ops import features as ft
 from ..ops import tsdf as tsdf_ops
 from ..solver import pose_graph as pg
 
@@ -81,9 +88,88 @@ def mapper_state_to_numpy(state: sm.MapperState) -> Dict[str, np.ndarray]:
     return _to_numpy(state)
 
 
+def _host(x) -> np.ndarray:
+    """A JAX array, a torch tensor (any device) or an array-like → numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def keypoints_from_numpy(kp, device) -> ft.Keypoints:
+    """Keypoints with numpy (or JAX) fields, uint32 descriptors → the
+    port's Keypoints on ``device`` (int32 descriptor bit patterns)."""
+    fields = {}
+    for name in ft.Keypoints._fields:
+        a = _host(kp[name] if isinstance(kp, dict) else getattr(kp, name))
+        if name == "desc":
+            a = a.astype(np.uint32).view(np.int32)
+        fields[name] = torch.from_numpy(np.array(a)).to(device)
+    return ft.Keypoints(**fields)
+
+
+def keypoints_to_numpy(kp: ft.Keypoints) -> Dict[str, np.ndarray]:
+    """The port's Keypoints → {field: numpy}, descriptors as uint32."""
+    out = {name: _host(getattr(kp, name)) for name in ft.Keypoints._fields}
+    out["desc"] = out["desc"].view(np.uint32)
+    return out
+
+
+def detector_state_to_numpy(det) -> Dict[str, np.ndarray]:
+    """A loop detector's device database and slot metadata → numpy. Works
+    on the JAX package's LoopDetector and on the port's (same attribute
+    names). Slots: ``slot_client`` (−1 where free) and ``slot_t``; ``free``
+    is the free list as stored (slots are popped from its end)."""
+    cfg = det.cfg
+    cap, K = cfg.max_keyframes, cfg.features.max_keypoints
+    pools = {"db_desc": ((cap, K, ft._N_WORDS), np.uint32),
+             "db_valid": ((cap, K), bool),
+             "db_pcam": ((cap, K, 3), np.float32),
+             "db_hdep": ((cap, K), bool)}
+    out = {}
+    for name, (shape, dtype) in pools.items():
+        x = getattr(det, "_" + name)
+        x = np.zeros(shape, dtype) if x is None else _host(x)
+        if x.dtype == np.int32:             # the port's descriptor words
+            x = x.view(np.uint32)
+        out[name] = x.astype(dtype, copy=False)
+    out["slot_client"] = np.array(
+        [-1 if kf is None else kf.client_id for kf in det.slots], np.int64)
+    out["slot_t"] = np.array(
+        [0.0 if kf is None else kf.t for kf in det.slots], np.float64)
+    out["free"] = np.array(det._free, np.int64)
+    for name in ("n_keyframes", "total_keyframes", "dropped_keyframes"):
+        out[name] = np.array(getattr(det, name), np.int64)
+    last = sorted(det._last_kf_time.items())
+    out["last_kf_client"] = np.array([c for c, _ in last], np.int64)
+    out["last_kf_t"] = np.array([t for _, t in last], np.float64)
+    return out
+
+
+def load_detector_state(det: ld.LoopDetector,
+                        arrays: Dict[str, np.ndarray]) -> ld.LoopDetector:
+    """Load ``detector_state_to_numpy``'s arrays into the port's detector
+    IN PLACE (pools copied onto its device, metadata replaced) → det."""
+    if arrays["db_desc"].shape != tuple(det._db_desc.shape):
+        raise ValueError(f"database shape {arrays['db_desc'].shape} does "
+                         f"not fit the detector's {tuple(det._db_desc.shape)}")
+    det._db_desc.copy_(torch.from_numpy(
+        np.ascontiguousarray(arrays["db_desc"]).view(np.int32)))
+    for name in ("db_valid", "db_pcam", "db_hdep"):
+        getattr(det, "_" + name).copy_(torch.from_numpy(
+            np.ascontiguousarray(arrays[name])))
+    det.slots = [None if c < 0 else ld.Keyframe(client_id=int(c), t=float(t))
+                 for c, t in zip(arrays["slot_client"], arrays["slot_t"])]
+    det._free = [int(s) for s in arrays["free"]]
+    for name in ("n_keyframes", "total_keyframes", "dropped_keyframes"):
+        setattr(det, name, int(arrays[name]))
+    det._last_kf_time = {int(c): float(t) for c, t in zip(
+        arrays["last_kf_client"], arrays["last_kf_t"])}
+    return det
+
+
 _CONFIGS = {c.__name__: c for c in (
     sm.MapperConfig, vx.VoxelGridSpec, tsdf_ops.TsdfIntegratorConfig,
-    syn.PinholeIntrinsics)}
+    syn.PinholeIntrinsics, ft.FeatureConfig, ld.LoopDetectorConfig)}
 
 
 def config_from(obj):

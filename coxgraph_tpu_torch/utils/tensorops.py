@@ -10,6 +10,9 @@ the mask back to the host. These helpers keep every write on the device:
 * ``where_fields`` selects between two dataclasses of tensors field by
   field (the counterpart of a ``lax.cond`` over a pytree).
 
+``check_operand`` is the kernel wrappers' check of a tensor before its
+pointer goes to CUDA.
+
 ``f32_reciprocal`` serves division by a constant: XLA rewrites ``x / c``
 into ``x * (1/c)`` with the reciprocal rounded to f32, and torch does the
 same on CUDA but divides exactly on the CPU. Writing the multiply out
@@ -29,6 +32,24 @@ Tensor = torch.Tensor
 def f32_reciprocal(c: float) -> float:
     """1/c rounded to f32 (exactly representable as the Python float)."""
     return float(np.float32(1.0) / np.float32(c))
+
+
+def check_operand(name: str, t: Tensor, dtype, shape, device,
+                  align: int = 1) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device`` whose data starts on an ``align``-byte boundary (what a
+    kernel wrapper checks before it hands the pointer to CUDA)."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def scatter_drop(dst: Tensor, idx: Tensor, val: Tensor) -> Tensor:

@@ -1,4 +1,4 @@
-"""GPU tests of the port's CUDA kernel (marker ``cuda``; each skips
+"""GPU tests of the port's CUDA kernels (marker ``cuda``; each skips
 without a card). The machine with the card has no JAX, so this file
 imports none, and neither may its run load tests/conftest.py:
 
@@ -9,7 +9,9 @@ Tolerances: the kernel vs its torch twin on the card — bit-identical
 vs the CPU path (which runs the twin) — integers exact, float pools with
 the share of |Δ| > 1e-4 below 1e-3, room for a last-bit difference
 between the CPU's and the card's libraries to move a voxel's pixel at a
-rounding boundary."""
+rounding boundary. The Hamming kernel vs its torch version: every output
+exact (integers). The loop detector on the card vs on the CPU: slot
+tables, scores and message pairs exact."""
 
 import dataclasses
 
@@ -19,9 +21,12 @@ import torch
 
 from coxgraph_tpu_torch.core import geometry as geo
 from coxgraph_tpu_torch.core import voxel as vx
+from coxgraph_tpu_torch.frontends import loop_detector as ld
 from coxgraph_tpu_torch.frontends import synthetic as syn
 from coxgraph_tpu_torch.mapper import submap_mapper as sm
+from coxgraph_tpu_torch.ops import cuda_hamming
 from coxgraph_tpu_torch.ops import cuda_tsdf
+from coxgraph_tpu_torch.ops import features as ft
 from coxgraph_tpu_torch.ops import tsdf
 
 INTR = syn.PinholeIntrinsics().scaled(0.125)     # 80x60
@@ -134,3 +139,113 @@ def test_step_batch_on_gpu_matches_cpu(gpu):
         d = (getattr(out["cuda"].collection.layers, name).cpu()
              - getattr(out["cpu"].collection.layers, name)).abs()
         assert float((d > 1e-4).float().mean()) < 1e-3, name
+
+
+def _words(gen, *shape, device):
+    return torch.randint(-2 ** 31, 2 ** 31, (*shape, 8), dtype=torch.int32,
+                         generator=gen, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ka,kb", [(128, 96), (384, 200), (1, 1), (300, 512)])
+def test_hamming_topk_kernel_matches_plain(gpu, ka, kb):
+    g = torch.Generator(device=gpu).manual_seed(ka + kb)
+    da, db = _words(g, ka, device=gpu), _words(g, kb, device=gpu)
+    db[: min(ka, kb) // 2] = da[: min(ka, kb) // 2]    # exact matches
+    before = cuda_hamming.LAUNCHES
+    got = cuda_hamming.hamming_match_topk(da, db)
+    assert cuda_hamming.LAUNCHES == before + 1
+    want = cuda_hamming.hamming_match_topk_reference(da, db)
+    for g_, w, name in zip(got, want, ("d1", "i1", "d2")):
+        assert g_.dtype == torch.int32 and torch.equal(g_, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+def test_match_topk_kernel_matches_plain(gpu, shared):
+    """The batched masked form, with ties (repeated columns), invalid rows
+    and columns, and an all-invalid query."""
+    g = torch.Generator(device=gpu).manual_seed(int(shared))
+    B, cap, K = 4, 24, 384
+    a = _words(g, B, K, device=gpu)
+    b = _words(g, 1 if shared else B, cap, K, device=gpu)
+    b[:, :, :40] = a[0, :40] if shared else a[:, None, :40]
+    b[:, :, 40:60] = b[:, :, 20:40]
+    av = torch.rand(B, K, generator=g, device=gpu) < 0.9
+    av[3] = False
+    bv = torch.rand(b.shape[:-1], generator=g, device=gpu) < 0.9
+    got = cuda_hamming.match_topk(a, av, b, bv, 10_000, 10_000)
+    want = cuda_hamming.match_topk_reference(a, av, b, bv, 10_000, 10_000)
+    for g_, w, name in zip(got, want, ("d1", "i1", "d2", "best_a")):
+        assert torch.equal(g_, w), name
+
+
+@pytest.mark.cuda
+def test_hamming_wrapper_rejects_bad_inputs(gpu):
+    g = torch.Generator(device=gpu).manual_seed(0)
+    a = _words(g, 2, 64, device=gpu)
+    b = _words(g, 1, 3, 64, device=gpu)
+    av = torch.ones(2, 64, dtype=torch.bool, device=gpu)
+    bv = torch.ones(1, 3, 64, dtype=torch.bool, device=gpu)
+    good = dict(a=a, a_valid=av, b=b, b_valid=bv, big=10_000, excl=10_000)
+    bad = [("a", a.long(), TypeError), ("b", b.cpu(), ValueError),
+           ("b", b.transpose(1, 2), ValueError),
+           ("b", _words(g, 3, 3, 64, device=gpu), ValueError),
+           ("a_valid", av.int(), TypeError), ("big", 1 << 15, ValueError),
+           ("a", a.reshape(-1)[1:1 + 2 * 63 * 8].reshape(2, 63, 8),
+            ValueError)]                        # not 16-byte aligned
+    before = cuda_hamming.LAUNCHES
+    for name, val, exc in bad:
+        with pytest.raises(exc):
+            cuda_hamming.match_topk(**dict(good, **{name: val}))
+    assert cuda_hamming.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_loop_detector_on_gpu_matches_cpu(gpu):
+    """The capacity scenario (16 slots, 40 ingests, then a revisit) on the
+    card and on the CPU: identical slot tables and message pairs, the
+    revisit verified at the identity, and the kernel on the card's path."""
+    cfg = ld.LoopDetectorConfig(
+        features=ft.FeatureConfig(max_keypoints=32, ransac_iters=64),
+        min_match_score=20, min_inliers=10, min_inlier_spread=0.3,
+        keyframe_stride=0.0, min_time_separation=1e9, max_keyframes=16,
+        match_chunk=8)
+    rng = np.random.default_rng(7)
+
+    def kp(dev, base=None):
+        K = 32
+        if base is None:
+            base = (rng.integers(-2 ** 31, 2 ** 31, (K, 8), dtype=np.int64)
+                    .astype(np.int32),
+                    np.stack([rng.uniform(-2, 2, K), rng.uniform(-2, 2, K),
+                              rng.uniform(1, 3, K)], -1).astype(np.float32))
+        d, p = (torch.from_numpy(x).to(dev) for x in base)
+        ones = torch.ones(K, dtype=torch.bool, device=dev)
+        return ft.Keypoints(uv=torch.zeros(K, 2, device=dev),
+                            response=ones.float(), valid=ones, desc=d,
+                            p_cam=p, has_depth=ones), base
+
+    dets = {dev: ld.LoopDetector(INTR, cfg, device=dev)
+            for dev in ("cpu", gpu)}
+    before = cuda_hamming.LAUNCHES
+    with pytest.warns(RuntimeWarning):
+        for i in range(40):
+            k_cpu, base = kp("cpu")
+            k_gpu, _ = kp(gpu, base)
+            msgs = [dets["cpu"].ingest_keypoints(i % 2, float(i), k_cpu),
+                    dets[gpu].ingest_keypoints(i % 2, float(i), k_gpu)]
+            assert [(m.from_client, m.from_time) for m in msgs[0]] == \
+                [(m.from_client, m.from_time) for m in msgs[1]]
+    assert cuda_hamming.LAUNCHES > before
+    tables = [[None if k is None else (k.client_id, k.t) for k in d.slots]
+              for d in dets.values()]
+    assert tables[0] == tables[1]
+    k_cpu, base = kp("cpu")
+    for dev, k in (("cpu", k_cpu), (gpu, kp(gpu, base)[0])):
+        dets[dev].ingest_keypoints(0, 40.0, k)
+        msgs = dets[dev].ingest_keypoints(1, 41.0, k)
+        assert msgs and msgs[0].from_time == 40.0
+        err = geo.se3_log(geo.relative(torch.from_numpy(msgs[0].T_from_to),
+                                       geo.identity("cpu")))
+        assert float(torch.linalg.norm(err)) < 0.05

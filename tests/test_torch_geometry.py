@@ -30,6 +30,10 @@ A = _poses(64, 0)
 B = _poses(64, 1)
 P = np.random.default_rng(2).normal(scale=1.0, size=(64, 3)).astype(
     np.float32)
+# tangents: rotations up to ~2 rad, and the Taylor branch (|w|² < 1e-8)
+XI = np.random.default_rng(3).normal(scale=0.8, size=(64, 6)).astype(
+    np.float32)
+XI[:8, :3] *= 1e-5
 
 # (name, jax fn, port fn, inputs)
 CASES = [
@@ -50,6 +54,12 @@ CASES = [
     ("make", jgeo.make, geo.make, (A[:, :4], A[:, 4:])),
     ("rotation", jgeo.rotation, geo.rotation, (A,)),
     ("translation", jgeo.translation, geo.translation, (A,)),
+    ("so3_exp", jgeo.so3_exp, geo.so3_exp, (XI[:, :3],)),
+    ("so3_log", jgeo.so3_log, geo.so3_log, (A[:, :4],)),
+    ("se3_exp", jgeo.se3_exp, geo.se3_exp, (XI,)),
+    ("se3_log", jgeo.se3_log, geo.se3_log, (A,)),
+    ("se3_log_near_identity", jgeo.se3_log, geo.se3_log,
+     (np.asarray(jgeo.se3_exp(jnp.asarray(XI * 1e-5))),)),
 ]
 
 

@@ -106,7 +106,7 @@ def test_config_from_refuses_unported_fields():
 
 def test_port_never_imports_jax():
     """With jax blocked, every module of the port (and chip_smoke.py and
-    the profiling tool) imports, and coxgraph_tpu is never reached."""
+    the profiling tools) imports, and coxgraph_tpu is never reached."""
     code = r"""
 import importlib, os, pkgutil, runpy, sys
 sys.modules["jax"] = None
@@ -116,8 +116,8 @@ names = [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import chip_smoke
-runpy.run_path(os.path.join("tools", "profile_torch_integrate.py"),
-               run_name="not_main")
+for tool in ("profile_torch_integrate.py", "profile_torch_detect.py"):
+    runpy.run_path(os.path.join("tools", tool), run_name="not_main")
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m == "coxgraph_tpu" or m.startswith("coxgraph_tpu.")
     or m == "jax" or m.startswith("jax."))]

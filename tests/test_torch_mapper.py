@@ -24,6 +24,7 @@ from coxgraph_tpu.core import voxel as jvx
 from coxgraph_tpu.frontends import synthetic as jsyn
 from coxgraph_tpu.mapper import submap_mapper as jsm
 from coxgraph_tpu.ops import tsdf as jtsdf
+from coxgraph_tpu_torch import runtime
 from coxgraph_tpu_torch.mapper import submap_mapper as sm
 from coxgraph_tpu_torch.utils import interop
 
@@ -225,6 +226,14 @@ def test_toggle_mapping_drops_frames():
     assert pm.n_submaps == 0 and int(pm.state.frame_count) == 0
 
 
-def test_host_mapper_needs_state_or_device():
-    with pytest.raises(ValueError):
+def test_host_mapper_needs_state_or_device(monkeypatch):
+    """With neither a state nor a device HostMapper goes to the card:
+    without one it raises, and the CPU serves only when asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError):
         sm.HostMapper(CFG)
+    asked = []
+    monkeypatch.setattr(runtime, "require_cuda",
+                        lambda: asked.append(1) or CPU)
+    assert sm.HostMapper(CFG).device == CPU and asked == [1]
+    assert sm.HostMapper(CFG, device=CPU).device == CPU and asked == [1]

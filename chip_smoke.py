@@ -58,7 +58,7 @@ import numpy as np
 import torch
 
 EVENT_REPS = 50
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak rate
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 BF16_FLOPS = 989e12            # dense bf16 tensor cores
 POPC_PER_CLOCK_PER_SM = 16     # CUDA C++ Programming Guide, cc 9.0

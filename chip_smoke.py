@@ -29,8 +29,11 @@ anything is wrong:
                  and the batched masked matcher at the endurance point
                  (8 queries × 512 slots × 384²) and the stock point
                  (4 × 2048 × 512²), ~90% valid: kernel ≡ plain version
-                 (and ≡ the ±1 bf16 matmul route) on every integer output;
-                 CUDA-event times of the three at the main path's shapes
+                 (and ≡ the ±1 bf16 matmul route) on every integer output,
+                 and so the verify launches' form (b per query) at
+                 (16, 1, 384²) and (2, 1, 512²); CUDA-event times of the
+                 three at the main path's shapes; the bound is the least
+                 of the popc, int8 and bf16 tensor-core floors
   8. main path — the endurance detector (tools/endurance_run.py: K = 384,
                  512 slots, 8-frame sub-batches, 64-slot match chunks) on
                  two robots' 640×480 frames rendered on the card, through
@@ -39,8 +42,9 @@ anything is wrong:
                  K2 launched; host syncs per sub-batch counted
   9. state     — the stock LoopDetectorConfig (2048 slots × 512 keypoints,
                  32 MB descriptor pool) loaded through utils.interop and
-                 filled past capacity through ingest_keypoints: evictions,
-                 per-client balance, a revisit still detected
+                 filled past capacity through ingest_keypoints and one
+                 8-member sub-batch: evictions, per-client balance, each
+                 member in its own slot, a revisit still detected
 
 The line before the last is the card's nvidia-smi name and power limit,
 the one before it the kernels' JSON record; the last line is
@@ -61,6 +65,7 @@ EVENT_REPS = 50
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 peak rate
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 BF16_FLOPS = 989e12            # dense bf16 tensor cores
+INT8_OPS = 1979e12             # dense int8 tensor cores
 POPC_PER_CLOCK_PER_SM = 16     # CUDA C++ Programming Guide, cc 9.0
 BIG = 10_000                   # features.match_descriptors' mask value
 # K2's operating points: (queries per sub-batch, pool slots, keypoints,
@@ -262,11 +267,22 @@ def _matmul_route(a, av, b, bv):
 
 
 def _k2_bound(B, cap, ka, kb, clock_hz, n_sms):
-    popc = B * cap * ka * kb * 8
+    """K2's least time at one launch shape → (ms, "bytes" or
+    "operations", the route of the operation floor, {route: floor ms}).
+    Each of the B·cap·Ka·Kb distances is 8 ``__popc`` on the CUDA cores,
+    or one 256-long ±1 dot product (512 operations) on the tensor cores in
+    int8 or bf16: the bound takes the fastest route."""
+    pairs = B * cap * ka * kb
     n_bytes = (B * ka * 33 + cap * kb * 33          # words + valid bytes
                + 4 * B * cap * (3 * ka + kb))       # d1, i1, d2, best_a
-    return _bound_ms(n_bytes, popc,
-                     POPC_PER_CLOCK_PER_SM * n_sms * clock_hz)
+    routes = {"popc": (8, POPC_PER_CLOCK_PER_SM * n_sms * clock_hz),
+              "int8 tensor cores": (512, INT8_OPS),
+              "bf16 tensor cores": (512, BF16_FLOPS)}
+    floors = {r: pairs * n / rate * 1e3 for r, (n, rate) in routes.items()}
+    route = min(floors, key=floors.get)
+    bound, by = _bound_ms(n_bytes, pairs * routes[route][0],
+                          routes[route][1])
+    return bound, by, route, floors
 
 
 def phase_hamming(device, ident):
@@ -297,6 +313,22 @@ def phase_hamming(device, ident):
                                torch.arange(ka, device=device))
     print("[7] hamming_match_topk ≡ plain at (128, 96), (384, 200), "
           "self-match (128)")
+
+    # the verify launches: every query against its own database row (b
+    # per query), at the endurance sub-batch's 8 × 2 candidates and the
+    # stock single ingest's 2
+    for nq, K in ((16, 384), (2, 512)):
+        a = _words(g, nq, K, device=device)
+        b = _words(g, nq, 1, K, device=device)
+        b[:, 0, : K // 2] = a[:, : K // 2]
+        av = torch.rand(nq, K, generator=g, device=device) < 0.9
+        bv = torch.rand(nq, 1, K, generator=g, device=device) < 0.9
+        got = ch.match_topk(a, av, b, bv, BIG, BIG)
+        compare(got, ch.match_topk_reference(a, av, b, bv, BIG, BIG),
+                f"verify {nq}x{K}")
+        compare(got, _matmul_route(a, av, b, bv), f"verify matmul {nq}x{K}")
+    print("[7] match_topk with b per query ≡ plain at (16, 1, 384²) and "
+          "(2, 1, 512²)")
 
     clock, n_sms = _sm_clock_hz(), torch.cuda.get_device_properties(
         0).multi_processor_count
@@ -334,23 +366,25 @@ def phase_hamming(device, ident):
                 _time_ms(fn, 20 if tag == "kernel" else 5))
         pool_ms = _time_ms(lambda: ch.match_topk(a, av, b, bv, BIG, BIG),
                            10)
-        bound, by = _k2_bound(B, chunk, K, K, clock, n_sms)
-        pool_bound, _ = _k2_bound(B, cap, K, K, clock, n_sms)
-        tc_floor = B * cap * K * K * 256 * 2 / BF16_FLOPS * 1e3
+        bound, by, route, floors = _k2_bound(B, chunk, K, K, clock, n_sms)
+        pool_bound, _, _, pool_floors = _k2_bound(B, cap, K, K, clock, n_sms)
         k_ms, p_ms, m_ms = (min(times[t]) for t in ("kernel", "plain",
                                                     "matmul"))
+        us, pool_us = ({r: f"{v * 1e3:.1f} us" for r, v in x.items()}
+                       for x in (floors, pool_floors))
         print(f"[7] {point}: {B} queries x {cap} slots x {K}^2, "
               f"{n_match} rows with d1 <= 64; one launch of {chunk} slots "
               f"(the main path's): kernel {k_ms * 1e3:.1f} us "
               f"{times['kernel']}, plain {p_ms * 1e3:.1f} us "
               f"{times['plain']}, matmul route {m_ms * 1e3:.1f} us "
-              f"{times['matmul']}, bound {bound * 1e3:.1f} us ({by}); "
-              f"whole pool in one launch {pool_ms * 1e3:.1f} us vs popc "
-              f"floor {pool_bound * 1e3:.1f} us, tensor-core floor "
-              f"{tc_floor * 1e3:.1f} us (SM clock {clock / 1e9:.3f} GHz, "
+              f"{times['matmul']}, bound {bound * 1e3:.1f} us ({by}, "
+              f"{route}; floors {us}); whole pool in one launch "
+              f"{pool_ms * 1e3:.1f} us vs bound {pool_bound * 1e3:.1f} us "
+              f"(floors {pool_us}; SM clock {clock / 1e9:.3f} GHz, "
               f"{n_sms} SMs) — {ident}")
         record[point] = dict(ms=k_ms, plain_ms=p_ms, matmul_ms=m_ms,
-                             bound_ms=bound, bound_by=by)
+                             bound_ms=bound, bound_by=by, bound_route=route,
+                             popc_bound_ms=floors["popc"])
         del a, b, av, bv, bc, bvc
         torch.cuda.empty_cache()
     return max_err, record["endurance"]
@@ -486,7 +520,20 @@ def phase_detector_state(device, ident):
     per_ms = (time.perf_counter() - t0) * 1e3 / n_ingest
     sat = [w for w in rec if "keyframe pool saturated" in str(w.message)]
     per = [sum(k.client_id == c for k in det.keyframes) for c in (0, 1)]
-    t_end = float(n_pre + n_ingest)
+    # one 8-frame sub-batch at capacity: each member takes its own slot,
+    # and the pool row of every slot holds the member the table names
+    t_b = n_pre + n_ingest
+    members = [kp() for _ in range(8)]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        det._ingest_keypoints_batch(
+            [(i % 2, float(t_b + i)) for i in range(8)],
+            ft.Keypoints(*(torch.stack(f) for f in zip(*members))), None)
+    where = {(kf.client_id, kf.t): s for s, kf in enumerate(det.slots)}
+    for i, m in enumerate(members):
+        assert torch.equal(det._db_desc[where[(i % 2, float(t_b + i))]],
+                           m.desc), i
+    t_end = float(t_b + 8)
     base = kp()
     det.ingest_keypoints(0, t_end, base)
     with warnings.catch_warnings():
@@ -498,11 +545,12 @@ def phase_detector_state(device, ident):
            if rev else float("nan"))
     print(f"[9] stock detector: pool {cap} x {K} ({pool_mb:.1f} MB of "
           f"descriptors), {n_pre} slots loaded, {n_ingest} ingests at "
-          f"{per_ms:.2f} ms each, dropped {det.dropped_keyframes}, "
+          f"{per_ms:.2f} ms each, an 8-member sub-batch at capacity, "
+          f"dropped {det.dropped_keyframes}, "
           f"per-client {per}, saturation warnings {len(sat)}, revisit "
           f"messages {len(msgs)} (|T - I| {err:.2e}) — {ident}")
     assert det.n_keyframes == cap and len(det.keyframes) == cap
-    assert det.dropped_keyframes == n_pre + n_ingest + 2 - cap
+    assert det.dropped_keyframes == n_pre + n_ingest + 8 + 2 - cap
     assert sat and abs(per[0] - per[1]) <= 1, per
     assert rev and rev[0].from_client == 0 and err < 0.05, msgs
 
@@ -618,6 +666,8 @@ def main() -> None:
         "bound_ms": k2["bound_ms"],
         "bound_by": k2["bound_by"],
         "library_ms": None,
+        "bound_route": k2["bound_route"],
+        "popc_bound_ms": k2["popc_bound_ms"],
         "matmul_ms": k2["matmul_ms"],
     }]}))
     print(ident)

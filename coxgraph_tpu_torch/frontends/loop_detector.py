@@ -349,15 +349,29 @@ class LoopDetector:
         return msgs
 
     def _ingest_chunk(self, chunk, generator) -> List[MapFusionMsg]:
-        cfg = self.cfg
         colors = torch.stack([c for _, _, c, _ in chunk])
         depths = torch.stack([d for _, _, _, d in chunk])
         kps = ft.detect_and_describe_batch(self.intr, colors, depths,
-                                           cfg.features)
+                                           self.cfg.features)
+        return self._ingest_keypoints_batch(
+            [(cid, t) for cid, t, _, _ in chunk], kps, generator)
+
+    def _ingest_keypoints_batch(self, meta, kps: ft.Keypoints,
+                                generator) -> List[MapFusionMsg]:
+        """One sub-batch: ``meta`` = [(client_id, t)], ``kps`` fields
+        (B, K, ...) → messages; one match+verify pass, one read, one
+        in-place append.
+
+        Slots are allocated member by member, each entered in the slot
+        table before the next eviction is chosen, so the table ends as B
+        single ingests leave it. (The JAX package allocates every member
+        against the table as it stood before the sub-batch: at capacity
+        its members evict the same slot, and a sub-batch that reaches
+        capacity part-way raises — ROADMAP queue 3.)"""
+        cfg = self.cfg
         msgs: List[MapFusionMsg] = []
         if self.n_keyframes > 0:
-            elig = np.stack([self._eligibility(cid, t)
-                             for cid, t, _, _ in chunk])
+            elig = np.stack([self._eligibility(cid, t) for cid, t in meta])
             if elig.any():
                 mc = min(cfg.max_candidates, cfg.max_keyframes)
                 scores, idx, Ts, n_inls, spreads = _read_results(
@@ -365,14 +379,25 @@ class LoopDetector:
                         *self._pools(), _upload(elig, self.device), kps,
                         cfg.features, mc, cfg.match_chunk,
                         self._generator(generator)))
-                for b, (cid, t, _, _) in enumerate(chunk):
+                for b, (cid, t) in enumerate(meta):
                     msgs.extend(self._gate_results(
                         cid, t, scores[b], idx[b], Ts[b], n_inls[b],
                         spreads[b]))
-        slots = np.asarray([self._alloc_slot(cid)
-                            for cid, _, _, _ in chunk], np.int64)
-        _db_append_batch(*self._pools(), kps, _upload(slots, self.device))
-        for (cid, t, _, _), s in zip(chunk, slots):
-            self.slots[int(s)] = Keyframe(client_id=cid, t=t)
+        slots = []
+        for cid, t in meta:
+            s = self._alloc_slot(cid)
+            self.slots[s] = Keyframe(client_id=cid, t=t)
             self.total_keyframes += 1
+            slots.append(s)
+        # a slot taken twice (a pool smaller than the sub-batch) keeps its
+        # last member, as in the table: index_copy_ with repeated indices
+        # would leave the device's pick to chance
+        keep = sorted({s: b for b, s in enumerate(slots)}.values())
+        if len(keep) < len(slots):
+            rows = _upload(np.array(keep, np.int64), self.device)
+            kps = ft.Keypoints(*(None if f is None else f[rows]
+                                 for f in kps))
+            slots = [slots[b] for b in keep]
+        _db_append_batch(*self._pools(), kps,
+                         _upload(np.asarray(slots, np.int64), self.device))
         return msgs

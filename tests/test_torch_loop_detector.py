@@ -9,6 +9,7 @@ and inlier counts are compared only where the verified pair is exact (a
 revisit of identical keypoints: every valid point is an inlier).
 """
 
+import dataclasses
 import warnings
 
 import jax
@@ -208,6 +209,52 @@ def test_eviction_order_matches_jax():
         err = jgeo.se3_log(jgeo.relative(jnp.asarray(msgs[0].T_from_to),
                                          jgeo.identity()))
         assert float(jnp.linalg.norm(err)) < 0.05
+
+
+@pytest.mark.parametrize("cap,n_pre", [(16, 14), (16, 20), (2, 0)],
+                         ids=["reaching-capacity", "at-capacity",
+                              "pool-smaller-than-sub-batch"])
+def test_batched_ingest_past_capacity_matches_single_ingests(
+        cap, n_pre, monkeypatch):
+    """Sub-batches of 4 keyframes past capacity on the port end in the
+    state the JAX detector reaches with the same keyframes ingested one by
+    one: slot table, free list, counters and device pools, exactly. (The
+    JAX package's own batched path evicts one slot for several members at
+    capacity and raises when a sub-batch reaches capacity part-way —
+    ROADMAP queue 3 — so the single path is the reference.) No append
+    writes one slot twice: index_copy_ on CUDA keeps an arbitrary one of
+    repeated indices."""
+    append = ld._db_append_batch
+
+    def unique_append(*args):
+        slots = args[-1]
+        assert slots.unique().numel() == slots.numel(), slots
+        append(*args)
+
+    monkeypatch.setattr(ld, "_db_append_batch", unique_append)
+    rng = np.random.default_rng(11)
+    jcfg = dataclasses.replace(JCAP, max_keyframes=cap,
+                               match_chunk=min(8, cap))
+    jdet = jld.LoopDetector(JINTR, jcfg)
+    det = ld.LoopDetector(INTR, interop.config_from(jcfg), device=CPU)
+    kps = [_synthetic_kp(rng) for _ in range(n_pre + 12)]
+    meta = [(i % 2, float(i)) for i in range(len(kps))]
+    pkps = [interop.keypoints_from_numpy(kp, CPU) for kp in kps]
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        for (c, t), kp in zip(meta, kps):
+            jdet.ingest_keypoints(c, t, _jax_kp(kp))
+        for (c, t), kp in zip(meta[:n_pre], pkps[:n_pre]):
+            det.ingest_keypoints(c, t, kp)
+        for b0 in range(n_pre, len(kps), 4):
+            batch = ft.Keypoints(*(torch.stack(f)
+                                   for f in zip(*pkps[b0:b0 + 4])))
+            det._ingest_keypoints_batch(meta[b0:b0 + 4], batch, None)
+    want = interop.detector_state_to_numpy(jdet)
+    got = interop.detector_state_to_numpy(det)
+    assert int(got["dropped_keyframes"]) == n_pre + 12 - cap
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
 def test_same_robot_time_gate():

@@ -12,7 +12,8 @@ Hamming kernel K2 → RANSAC) and fails (nonzero exit, no result line) if
 anything is wrong:
 
   1. device    — require a CUDA GPU; print nvidia-smi's name and power limit
-  2. build     — build the kernel library from csrc/ with nvcc (sm_90a)
+  2. build     — build the kernel library from csrc/ with nvcc (sm_90a);
+                 K2's SASS must hold tensor-core instructions (cuobjdump)
   3. kernel    — at the bench point (640×480, 5 cm, 16³ blocks), the kernel
                  vs its plain torch twin on the card, same inputs: integer
                  outputs equal; float pools bit-identical except at most
@@ -25,8 +26,11 @@ anything is wrong:
                  21.5 GB of pools): 30 frames at 1 s with the 10 s submap
                  interval roll over at t = 0, 10, 20
   6. times     — tsdf_benchmark frames/s, and the kernel alone vs its twin
-  7. K2        — hamming_match_topk at (128, 96), (384, 200) and self-match,
-                 and the batched masked matcher at the endurance point
+  7. K2        — hamming_match_topk at (128, 96), (384, 200), self-match
+                 and the edge shapes Ka in {100, 200} x Kb in {1, 7, 200};
+                 the batched masked matcher at those edge shapes (b shared
+                 and per query; invalid rows, columns, slots, queries; ties
+                 across columns, rows and slots), at the endurance point
                  (8 queries × 512 slots × 384²) and the stock point
                  (4 × 2048 × 512²), ~90% valid: kernel ≡ plain version
                  (and ≡ the ±1 bf16 matmul route) on every integer output,
@@ -54,6 +58,7 @@ the one before it the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import time
 import warnings
@@ -71,6 +76,8 @@ BIG = 10_000                   # features.match_descriptors' mask value
 # K2's operating points: (queries per sub-batch, pool slots, keypoints,
 # slots per kernel launch) of the endurance and the stock detector
 K2_POINTS = {"endurance": (8, 512, 384, 64), "stock": (4, 2048, 512, 128)}
+# K2's edge shapes: Ka not a multiple of its 32-row tile, Kb of 1, 7, 200
+K2_EDGES = tuple((ka, kb) for ka in (100, 200) for kb in (1, 7, 200))
 
 
 def _time_ms(fn, reps: int = EVENT_REPS) -> float:
@@ -95,6 +102,24 @@ def _sm_clock_hz() -> float:
          "--format=csv,noheader,nounits"],
         capture_output=True, text=True, timeout=60, check=True)
     return float(out.stdout.split()[0]) * 1e6
+
+
+def _tensor_core_instructions(build, kernel: str) -> int:
+    """Integer tensor-core instructions (mma.sync's IMMA, wgmma's IGMMA)
+    in the SASS of the built library's functions whose name holds
+    ``kernel``."""
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc_path()),
+                             "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", build.LIB_PATH],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    n, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and ("IMMA" in line or "IGMMA" in line):
+            n += 1
+    return n
 
 
 def _bound_ms(n_bytes: float, ops: float, ops_per_s: float):
@@ -253,6 +278,30 @@ def _words(gen, *shape, device):
                          generator=gen, device=device)
 
 
+def _edge_inputs(g, nq, cap, ka, kb, batched, device):
+    """Matcher inputs with every masking and tie case of K2's epilogue:
+    exact matches, a row repeated (a tie across rows), a column repeated
+    (across columns), slot 2 a copy of slot 1 (across slots), query row 1
+    and database column 2 invalid, the last slot and (nq > 1) the last
+    query wholly invalid."""
+    a = _words(g, nq, ka, device=device)
+    b = _words(g, nq if batched else 1, cap, kb, device=device)
+    n = min(ka, kb) // 2
+    b[:, :, :n] = a[:, None, :n] if batched else a[0, None, :n]
+    b[:, :, -1] = b[:, :, 0]
+    a[:, -1] = a[:, 0]
+    if cap > 2:
+        b[:, 2] = b[:, 1]
+    av = torch.rand(nq, ka, generator=g, device=device) < 0.9
+    bv = torch.rand(b.shape[:-1], generator=g, device=device) < 0.9
+    av[0, 1] = False
+    bv[:, 0, 2 % kb] = False
+    bv[:, -1] = False
+    if nq > 1:
+        av[-1] = False
+    return a, av, b, bv
+
+
 def _matmul_route(a, av, b, bv):
     """What the JAX package's production matcher computes
     (features.hamming_matrix: one ±1 bf16 matmul, then min/argmin)."""
@@ -301,9 +350,13 @@ def phase_hamming(device, ident):
             max_err = max(max_err, err)
             assert err == 0, (what, name, err)
 
-    for ka, kb in ((128, 96), (384, 200), (128, None)):
+    for ka, kb in ((128, 96), (384, 200), (128, None)) + K2_EDGES:
         da = _words(g, ka, device=device)
         db = da if kb is None else _words(g, kb, device=device)
+        if kb is not None:
+            n = min(ka, kb) // 2
+            db[:n] = da[:n]                     # exact matches
+            db[-1] = db[0]                      # tie across columns
         got = ch.hamming_match_topk(da, db)
         compare(got, ch.hamming_match_topk_reference(da, db),
                 f"topk {ka}x{kb}")
@@ -311,8 +364,24 @@ def phase_hamming(device, ident):
             assert int(got[0].max()) == 0
             assert torch.equal(got[1].long(),
                                torch.arange(ka, device=device))
-    print("[7] hamming_match_topk ≡ plain at (128, 96), (384, 200), "
-          "self-match (128)")
+    print(f"[7] hamming_match_topk ≡ plain at (128, 96), (384, 200), "
+          f"self-match (128) and (Ka, Kb) in {K2_EDGES}")
+
+    # edge shapes (Ka not a multiple of the tile, Kb of 1, 7, 200) with an
+    # invalid row, an invalid column, a whole invalid slot and query, and
+    # exact ties across columns, rows and slots; b shared and per query
+    for ka, kb in K2_EDGES:
+        for nq, cap, batched in ((3, 4, False), (3, 2, True)):
+            a, av, b, bv = _edge_inputs(g, nq, cap, ka, kb, batched, device)
+            got = ch.match_topk(a, av, b, bv, BIG, BIG)
+            what = (f"edge {nq}x{cap}x{ka}x{kb} "
+                    f"{'per query' if batched else 'shared'}")
+            compare(got, ch.match_topk_reference(a, av, b, bv, BIG, BIG),
+                    what)
+            compare(got, _matmul_route(a, av, b, bv), what + " matmul")
+    print(f"[7] match_topk ≡ plain ≡ matmul route at (Ka, Kb) in "
+          f"{K2_EDGES}, b shared and per query, with invalid rows, "
+          f"columns, slots and queries and tied columns, rows and slots")
 
     # the verify launches: every query against its own database row (b
     # per query), at the endurance sub-batch's 8 × 2 candidates and the
@@ -383,6 +452,7 @@ def phase_hamming(device, ident):
               f"(floors {pool_us}; SM clock {clock / 1e9:.3f} GHz, "
               f"{n_sms} SMs) — {ident}")
         record[point] = dict(ms=k_ms, plain_ms=p_ms, matmul_ms=m_ms,
+                             pool_ms=pool_ms,
                              bound_ms=bound, bound_by=by, bound_route=route,
                              popc_bound_ms=floors["popc"])
         del a, b, av, bv, bc, bvc
@@ -576,6 +646,10 @@ def main() -> None:
         for line in f:
             if "registers" in line or "spill" in line:
                 print("[2]   " + line.strip())
+    n_mma = _tensor_core_instructions(_build, "hamming")
+    print(f"[2] K2 on the tensor cores: {n_mma} IMMA/IGMMA instructions in "
+          f"its SASS (cuobjdump -sass)")
+    assert n_mma > 0, "K2 has no tensor-core instruction"
 
     cfg = bm._mapper_config()
     t0 = time.perf_counter()
@@ -669,6 +743,7 @@ def main() -> None:
         "bound_route": k2["bound_route"],
         "popc_bound_ms": k2["popc_bound_ms"],
         "matmul_ms": k2["matmul_ms"],
+        "pool_ms": k2["pool_ms"],
     }]}))
     print(ident)
     print(json.dumps({"ok": True, "device": {

@@ -1,35 +1,77 @@
-// Brute-force binary-descriptor matching for NVIDIA Hopper (sm_90a).
+// Brute-force binary-descriptor matching for NVIDIA Hopper (sm_90a), on the
+// int8 tensor cores.
 //
 // Replaces the TPU kernel coxgraph_tpu/ops/pallas_kernels.py::_match_kernel
 // (launched by hamming_match_topk) and serves the port's match_descriptors
-// (coxgraph_tpu/ops/features.py:217-237) on the loop-detection path. Its
-// plain torch version is
-// coxgraph_tpu_torch/ops/cuda_hamming.py::match_topk_reference.
+// (loop detection's scoring and verification). Its plain torch version is
+// coxgraph_tpu_torch/ops/cuda_hamming.py::match_topk_reference, the oracle.
 //
-// For one pair (query q, database row j) the distance between query row i
-// and database column c is the Hamming distance of two 256-bit BRIEF
-// descriptors, 8 x __popc(a ^ b), replaced by `big` when either side is
-// invalid. Per query row the kernel keeps the two best columns online, with
-// the reference's tie rules:
-//   * d1 = min_c D[i, c], i1 = the lowest c reaching it (a strict < update);
-//   * d2 = min(excl, min over c != i1 of D[i, c]) -- what setting column i1
-//     to `excl` and taking the minimum gives;
-// and per column the lowest row reaching the column minimum (best_a), by a
-// shared-memory atomicMin on the key (dist << 16) | row, which is exact and
-// deterministic because dist < 2^15 and row < 2^16 (checked by the wrapper).
+// Function. For one pair (query q, database row j) the distance between query
+// row i and database column c is the Hamming distance of two packed 256-bit
+// BRIEF descriptors, replaced by `big` when either side is invalid. Per row:
+//   * d1 = min_c D[i, c], i1 = the lowest c reaching it;
+//   * d2 = min(excl, min over c != i1 of D[i, c]);
+// per column (best_a): the lowest row reaching the column minimum.
 //
-// Grid: one CTA per pair. The pair's Kb x 8 words of b are staged in shared
-// memory once; each thread owns a row of a (8 words in registers) and walks
-// all columns, so every b word is a broadcast read. Rows beyond the block
-// size loop. For the column minimum a warp first reduces its 32 keys with
-// one redux.sync (__reduce_min_sync), then lane 0 does the shared atomicMin.
+// Encoding. Each bit becomes one int8, +1 for a set bit and -1 for a clear
+// one, so dot(a, b) = 256 - 2 d and d = (256 - dot) / 2: a 256-deep s8 x s8
+// product with s32 sums. The packed words are expanded in registers, four
+// bits to four bytes in four integer operations (expand4). A descriptor's 32
+// bytes become 256, once per descriptor per CTA: 1/Ka of the per-distance
+// work. An invalid descriptor's int8 row is zero, so every dot product with
+// it is 0.
 //
-// What bounds it: the popcounts. At the endurance point (8 queries x 512
-// database rows x 384^2 descriptor pairs = 604 M pairs) it issues 4.83 G
-// __popc; at 16 per clock per SM that is ~1.15 ms on 132 SMs at 1.98 GHz.
-// Bytes are small (6 MB of database descriptors, 25 MB of outputs). The same
-// distances as a +-1 bf16 matmul would need ~0.31 ms of tensor-core time;
-// this simple kernel does not use the tensor cores.
+// Keys. The row key of (i, c) is (d << 16) | c, the column key (d << 16) | i.
+// With the +-1 encoding each is one IMAD on the s32 sum:
+//   key = dot * (-32768) + K,  K = (256 << 15) | index,
+// and the masks live in the constant K alone: an invalid column's row-key
+// constant is (big << 16) | c and its int8 row is zero, so its key is that
+// constant whatever the query row; an invalid query row's int8 row is zero
+// and its column-key constant (big << 16) | i; a padding row's or column's
+// constant is INT_MAX. The keys are exact and order like (d, index) because
+// d <= max(256, big) < 2^15 and index < 2^16 (the wrapper checks Ka < 65536,
+// Kb <= 1024 and big < 2^15), so a key is a non-negative int32.
+//   * Row top-2: m2 = min(m2, max(m1, k)), m1 = min(m1, k), two keys at a
+//     time with one 3-input min (Hopper's DPX __vimin3_s32). Keys are unique
+//     per row, so m1 gives d1 and i1 (ties to the lowest column) and the
+//     distance in m2 is d2 exactly, ties included.
+//   * Column minimum: one min per distance, then a shuffle tree over the
+//     eight row groups of the warp and a shared atomicMin per column.
+//   * Closed forms: an invalid row's outputs are d1 = big, i1 = 0,
+//     d2 = min(excl, big) when Kb > 1 and excl when Kb = 1; an invalid
+//     column's best_a is 0 (every entry of the column is big).
+//
+// Tiling (mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32; both operands are
+// K-major, as descriptors are). One CTA of 8 warps per (pair, row range). The
+// CTA unpacks up to 384 database columns at a time into shared memory, laid
+// out fragment-native: per 8-column tile, per pair of 32-deep k-steps, each
+// lane's four B registers are one uint4, so a warp reads a tile's fragments
+// with four conflict-free 128-bit loads (no ldmatrix needed). Each warp takes
+// 32 query rows (two m16 tiles) and holds their A fragments, the whole
+// 256-deep descriptor, in 64 registers; it walks the chunk's 8-column tiles:
+// 16 mma.sync, then the epilogue on the eight s32 sums in registers. Rows
+// beyond 8 x 32 loop over the warps. Kb > 384 is split into equal chunks of
+// at most 384 columns (512 -> 2 x 256); a row's top-2 is kept in shared
+// memory between chunks.
+//   Shared memory: chunk x 256 B of fragments (96 KB at 384) + 8 B per chunk
+//   column (constants, keys) + 8 B per CTA row (<= 512 rows): <= 103 KB, so
+//   two CTAs share an SM (__launch_bounds__(256, 2), <= 128 registers).
+//   Decomposition: a launch of at least 2 x SMs pairs (the detector's scoring
+//   launches: 8 x 64 or 4 x 128 pairs) takes one CTA per pair, ~4 waves on
+//   132 SMs. A launch with fewer pairs (verification: 2-16; the one pair of
+//   hamming_match_topk) splits the rows of each pair over CTAs; each CTA
+//   atomicMin's its column keys into best_a in global memory (min is
+//   order-free, so the result is deterministic) and a second kernel turns
+//   the keys into row indices.
+//
+// What bounds it. At the endurance launch (8 queries x 64 slots x 384^2 =
+// 75.5 M distances) the int8 tensor cores need 75.5 M x 512 operations at
+// 1,979 TOP/s = 19.5 us. The epilogue is the second floor: ~5 integer
+// operations per distance (two IMADs, the top-2's ~2.5, the column min's
+// ~0.5) at 64 per clock per SM on 132 SMs at 1.98 GHz is 18-27 us, and
+// mma.sync issues from the same warps, so the two add up rather than
+// overlap. Shared-memory reads of B are a third: 8 bytes per distance for 32
+// rows per warp, 128 B per clock per SM, ~18 us. Bytes are small (6 MB).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -37,79 +79,277 @@
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTileRows = 32;      // query rows per warp tile: two m16 tiles
+constexpr int kMaxChunk = 384;     // database columns unpacked at a time
+constexpr int kMaxRows = 512;      // query rows per CTA
+constexpr int kSteps = 8;          // 32-deep k-steps of a 256-bit descriptor
+constexpr int kUnpack = 8;         // unpack items whose loads are in flight
 
-__global__ void __launch_bounds__(kThreads) hamming_topk_kernel(
-    const uint4* __restrict__ a, const uint8_t* __restrict__ a_valid,
-    const uint4* __restrict__ b, const uint8_t* __restrict__ b_valid,
-    int32_t* __restrict__ d1_out, int32_t* __restrict__ i1_out,
-    int32_t* __restrict__ d2_out, int32_t* __restrict__ best_a_out,
-    int cap, int ka, int kb, int b_batched, int big, int excl) {
+struct Args {
+  const uint32_t* a;        // (n_q, ka, 8) words
+  const uint8_t* a_valid;   // (n_q, ka) or null
+  const uint32_t* b;        // (n_q or 1, cap, kb, 8) words
+  const uint8_t* b_valid;   // (n_q or 1, cap, kb) or null
+  int32_t* d1;              // (n_q, cap, ka)
+  int32_t* i1;
+  int32_t* d2;
+  int32_t* best_a;          // (n_q, cap, kb) or null
+  int cap, ka, kb, b_batched, big, excl;
+  int rows;                 // query rows per CTA (a multiple of 32)
+  int chunk;                // database columns per chunk (a multiple of 8)
+  int split;                // rows of a pair spread over several CTAs
+};
+
+__device__ __forceinline__ int min3(int a, int b, int c) {
+#if __CUDACC_VER_MAJOR__ >= 12
+  return __vimin3_s32(a, b, c);   // one DPX instruction on sm_90
+#else
+  return min(min(a, b), c);
+#endif
+}
+
+// the four bits of w at `shift` as four int8: +1 for a set bit, -1 else
+__device__ __forceinline__ uint32_t expand4(uint32_t w, int shift) {
+  const uint32_t u = (((w >> shift) & 0xFu) * 0x00204081u) & 0x01010101u;
+  return u * 0xFFFFFF02u + 0xFFFFFFFFu;   // ~(u * 0xFE), bytewise
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// key = (d << 16) | index from the s32 sum and the index's constant
+__device__ __forceinline__ int key_of(int dot, int k) {
+  return dot * -32768 + k;
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
+    hamming_mma_kernel(const Args p) {
   extern __shared__ uint4 smem[];
-  uint4* sb = smem;                                     // (kb, 2) uint4
-  int* skey = reinterpret_cast<int*>(sb + 2 * kb);      // (kb,)
-  uint8_t* sval = reinterpret_cast<uint8_t*>(skey + kb);  // (kb,)
+  const int n_tiles8 = p.chunk / 8;
+  uint4* sb = smem;                                    // (chunk/8, 4, 32)
+  int* scol = reinterpret_cast<int*>(sb + n_tiles8 * 128);  // (chunk,)
+  int* skey = scol + p.chunk;                          // (chunk,)
+  int* sm1 = skey + p.chunk;                           // (rows,)
+  int* sm2 = sm1 + p.rows;                             // (rows,)
 
-  const int pair = blockIdx.x;  // q * cap + j
-  const int q = pair / cap;
-  const int j = pair - q * cap;
-  const size_t brow = b_batched ? (size_t)pair : (size_t)j;
-  const uint4* gb = b + brow * (size_t)kb * 2;
-  for (int c = threadIdx.x; c < 2 * kb; c += blockDim.x) sb[c] = gb[c];
-  for (int c = threadIdx.x; c < kb; c += blockDim.x) {
-    skey[c] = INT_MAX;
-    sval[c] = b_valid == nullptr ? 1 : b_valid[brow * kb + c];
-  }
-  __syncthreads();
-
-  const bool want_cols = best_a_out != nullptr;
+  const int pair = blockIdx.x;                         // q * cap + j
+  const int q = pair / p.cap;
+  const int j = pair - q * p.cap;
+  const size_t brow = p.b_batched ? (size_t)pair : (size_t)j;
+  const int row0 = blockIdx.y * p.rows;
+  const int row_end = min(p.ka, row0 + p.rows);
+  const int row_tiles = (row_end - row0 + kTileRows - 1) / kTileRows;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int ka_round = (ka + blockDim.x - 1) / blockDim.x * blockDim.x;
-  const size_t out_row = (size_t)pair * ka;
-  for (int i = threadIdx.x; i < ka_round; i += blockDim.x) {
-    // every lane of a warp stays in the loop (for the warp reduction);
-    // lanes past the last row carry no row
-    const bool row = i < ka;
-    uint4 a0 = make_uint4(0, 0, 0, 0), a1 = a0;
-    bool av = false;
-    if (row) {
-      const size_t ar = (size_t)q * ka + i;
-      a0 = a[2 * ar];
-      a1 = a[2 * ar + 1];
-      av = a_valid == nullptr || a_valid[ar] != 0;
-    }
-    int d1 = INT_MAX, i1 = 0, d2 = excl;
-    for (int c = 0; c < kb; ++c) {
-      const uint4 b0 = sb[2 * c];
-      const uint4 b1 = sb[2 * c + 1];
-      int d = __popc(a0.x ^ b0.x) + __popc(a0.y ^ b0.y) +
-              __popc(a0.z ^ b0.z) + __popc(a0.w ^ b0.w) +
-              __popc(a1.x ^ b1.x) + __popc(a1.y ^ b1.y) +
-              __popc(a1.z ^ b1.z) + __popc(a1.w ^ b1.w);
-      d = (av && sval[c] != 0) ? d : big;
-      if (d < d1) {
-        d2 = min(d2, d1);
-        d1 = d;
-        i1 = c;
-      } else {
-        d2 = min(d2, d);
+  const int g = lane >> 2;           // fragment row group
+  const int t = lane & 3;            // thread in group
+  const bool want_cols = p.best_a != nullptr;
+  const int n_chunks = (p.kb + p.chunk - 1) / p.chunk;
+
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int c0 = ch * p.chunk;
+    const int kc = min(p.chunk, p.kb - c0);
+    const int nt = (kc + 7) / 8;
+    const bool last = ch == n_chunks - 1;
+    __syncthreads();   // the previous chunk's fragments and keys are read
+
+    // ---- unpack: one uint4 per (8-column tile, k-step pair, lane) ------
+    // lane l holds column 8 tile + l / 4; its registers b0, b1 of k-steps
+    // 2 sp and 2 sp + 1: bits 4 t.. and 16 + 4 t.. of words 2 sp, 2 sp + 1.
+    // The global loads of kUnpack items are issued before any is expanded.
+    for (int base = threadIdx.x; base < nt * 128; base += kUnpack * kThreads) {
+      uint2 w[kUnpack];
+      bool live[kUnpack];
+#pragma unroll
+      for (int u = 0; u < kUnpack; ++u) {
+        const int it = base + u * kThreads;
+        const int c = (it >> 7) * 8 + ((it & 31) >> 2);
+        const size_t col = brow * p.kb + c0 + c;
+        live[u] = it < nt * 128 && c < kc &&
+                  (p.b_valid == nullptr || p.b_valid[col]);
+        w[u] = live[u] ? reinterpret_cast<const uint2*>(p.b)[col * 4 +
+                                                           ((it >> 5) & 3)]
+                       : make_uint2(0u, 0u);
       }
-      if (want_cols) {
-        const int key = __reduce_min_sync(0xffffffffu,
-                                          row ? ((d << 16) | i) : INT_MAX);
-        if (lane == 0) atomicMin(&skey[c], key);
+#pragma unroll
+      for (int u = 0; u < kUnpack; ++u) {
+        const int it = base + u * kThreads;
+        const int tt = it & 3;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (live[u]) {
+          v.x = expand4(w[u].x, 4 * tt);
+          v.y = expand4(w[u].x, 16 + 4 * tt);
+          v.z = expand4(w[u].y, 4 * tt);
+          v.w = expand4(w[u].y, 16 + 4 * tt);
+        }
+        if (it < nt * 128) sb[it] = v;
       }
     }
-    if (row) {
-      d1_out[out_row + i] = d1;
-      i1_out[out_row + i] = i1;
-      d2_out[out_row + i] = d2;
+    for (int c = threadIdx.x; c < nt * 8; c += kThreads) {
+      int k = INT_MAX;
+      if (c < kc) {
+        const size_t col = brow * p.kb + c0 + c;
+        const bool ok = p.b_valid == nullptr || p.b_valid[col];
+        k = ok ? ((256 << 15) | (c0 + c)) : ((p.big << 16) | (c0 + c));
+      }
+      scol[c] = k;
+      skey[c] = INT_MAX;
+    }
+    __syncthreads();
+
+    // ---- tensor cores and epilogue, one 32-row tile per warp at a time --
+    for (int tile = warp; tile < row_tiles; tile += kWarps) {
+      const int rbase = row0 + tile * kTileRows;
+      uint32_t af[2][kSteps][4];   // A fragments [m16 tile][k-step][reg]
+      int rk[2][2];                // column-key constants [m16 tile][half]
+      int m1[2][2], m2[2][2];      // row top-2 keys
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + 16 * m + 8 * h + g;
+          uint4 w0 = make_uint4(0u, 0u, 0u, 0u), w1 = w0;
+          bool ok = false;
+          rk[m][h] = INT_MAX;
+          if (r < row_end) {
+            const size_t ar = (size_t)q * p.ka + r;
+            const uint4* pa = reinterpret_cast<const uint4*>(p.a) + 2 * ar;
+            w0 = pa[0];
+            w1 = pa[1];
+            ok = p.a_valid == nullptr || p.a_valid[ar];
+            rk[m][h] = ok ? ((256 << 15) | r) : ((p.big << 16) | r);
+          }
+          const uint32_t keep = ok ? 0xFFFFFFFFu : 0u;
+          const uint32_t w[kSteps] = {w0.x, w0.y, w0.z, w0.w,
+                                      w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+          for (int s = 0; s < kSteps; ++s) {
+            af[m][s][h] = expand4(w[s], 4 * t) & keep;
+            af[m][s][2 + h] = expand4(w[s], 16 + 4 * t) & keep;
+          }
+          const bool carry = ch > 0 && t == 0 && r < row_end;
+          m1[m][h] = carry ? sm1[r - row0] : INT_MAX;
+          m2[m][h] = carry ? sm2[r - row0] : INT_MAX;
+        }
+      }
+
+#pragma unroll 2
+      for (int n = 0; n < nt; ++n) {
+        const uint4* fb = sb + n * 128 + lane;
+        uint4 bq[4];
+#pragma unroll
+        for (int sp = 0; sp < 4; ++sp) bq[sp] = fb[32 * sp];
+        // two accumulator chains per m16 tile (even and odd k-steps) halve
+        // the dependent mma.sync latency
+        int acc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+        int odd[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+#pragma unroll
+        for (int sp = 0; sp < 4; ++sp) {
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            mma_s8(acc[m], af[m][2 * sp], bq[sp].x, bq[sp].y);
+            mma_s8(odd[m], af[m][2 * sp + 1], bq[sp].z, bq[sp].w);
+          }
+        }
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][i] += odd[m][i];
+        }
+        // acc[m][2 h + e]: row 16 m + 8 h + g of the tile, column
+        // 8 n + 2 t + e
+        const int2 cc = *reinterpret_cast<const int2*>(scol + 8 * n + 2 * t);
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int k0 = key_of(acc[m][2 * h], cc.x);
+            const int k1 = key_of(acc[m][2 * h + 1], cc.y);
+            const int lo = min(k0, k1);
+            m2[m][h] = min3(m2[m][h], max(m1[m][h], lo), max(k0, k1));
+            m1[m][h] = min(m1[m][h], lo);
+          }
+        }
+        if (want_cols) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            int k = min(min3(key_of(acc[0][e], rk[0][0]),
+                             key_of(acc[0][2 + e], rk[0][1]),
+                             key_of(acc[1][e], rk[1][0])),
+                        key_of(acc[1][2 + e], rk[1][1]));
+            k = min(k, __shfl_xor_sync(0xFFFFFFFFu, k, 4));
+            k = min(k, __shfl_xor_sync(0xFFFFFFFFu, k, 8));
+            k = min(k, __shfl_xor_sync(0xFFFFFFFFu, k, 16));
+            if (g == 0) atomicMin(&skey[8 * n + 2 * t + e], k);
+          }
+        }
+      }
+
+      // the four lanes of a quad hold one row's top-2 over their columns
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int off = 1; off <= 2; off <<= 1) {
+            const int o1 = __shfl_xor_sync(0xFFFFFFFFu, m1[m][h], off);
+            const int o2 = __shfl_xor_sync(0xFFFFFFFFu, m2[m][h], off);
+            m2[m][h] = min3(max(m1[m][h], o1), m2[m][h], o2);
+            m1[m][h] = min(m1[m][h], o1);
+          }
+          const int r = rbase + 16 * m + 8 * h + g;
+          if (t != 0 || r >= row_end) continue;
+          if (!last) {
+            sm1[r - row0] = m1[m][h];
+            sm2[r - row0] = m2[m][h];
+            continue;
+          }
+          const size_t o = (size_t)pair * p.ka + r;
+          const bool ok =
+              p.a_valid == nullptr || p.a_valid[(size_t)q * p.ka + r];
+          int d1 = p.big, i1 = 0, d2 = p.big;
+          if (ok) {
+            d1 = m1[m][h] >> 16;
+            i1 = m1[m][h] & 0xFFFF;
+            d2 = m2[m][h] >> 16;
+          }
+          p.d1[o] = d1;
+          p.i1[o] = i1;
+          p.d2[o] = p.kb > 1 ? min(p.excl, d2) : p.excl;
+        }
+      }
+    }
+
+    // ---- the chunk's column results ------------------------------------
+    if (want_cols) {
+      __syncthreads();
+      for (int c = threadIdx.x; c < kc; c += kThreads) {
+        const size_t col = brow * p.kb + c0 + c;
+        const bool ok = p.b_valid == nullptr || p.b_valid[col];
+        int32_t* out = p.best_a + (size_t)pair * p.kb + c0 + c;
+        if (!p.split) {
+          *out = ok ? (skey[c] & 0xFFFF) : 0;
+        } else {
+          atomicMin(reinterpret_cast<unsigned int*>(out),
+                    ok ? (unsigned int)skey[c] : 0u);
+        }
+      }
     }
   }
-  if (want_cols) {
-    __syncthreads();
-    for (int c = threadIdx.x; c < kb; c += blockDim.x)
-      best_a_out[(size_t)pair * kb + c] = skey[c] & 0xffff;
+}
+
+// best_a's column keys (split launches) → row indices
+__global__ void keys_to_rows_kernel(int32_t* best_a, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    best_a[i] &= 0xFFFF;
   }
 }
 
@@ -117,24 +357,81 @@ __global__ void __launch_bounds__(kThreads) hamming_topk_kernel(
 
 extern "C" {
 
-// Launches the matcher on `stream` and returns cudaGetLastError() (0 on
+// Launches the matcher on `stream` and returns the first CUDA error (0 on
 // success). a (n_q, ka, 8) and b (n_q or 1, cap, kb, 8) hold 32-bit words,
 // 16-byte aligned; a_valid (n_q, ka) / b_valid (n_q or 1, cap, kb) are
 // bytes, or null for all valid; best_a may be null (not computed).
 // Outputs d1, i1, d2 are (n_q, cap, ka) int32, best_a (n_q, cap, kb).
-// Allocates nothing and does not synchronise.
+// Requires ka < 65536, kb <= 1024, 0 <= big < 2^15. Allocates nothing and
+// does not synchronise.
 int cox_hamming_topk(const void* a, const void* a_valid, const void* b,
                      const void* b_valid, void* d1, void* i1, void* d2,
                      void* best_a, int n_q, int cap, int ka, int kb,
                      int b_batched, int big, int excl, void* stream) {
   if (n_q <= 0 || cap <= 0 || ka <= 0 || kb <= 0) return (int)cudaSuccess;
-  const size_t smem = (size_t)kb * (2 * sizeof(uint4) + sizeof(int) + 1);
-  hamming_topk_kernel<<<n_q * cap, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const uint4*>(a), static_cast<const uint8_t*>(a_valid),
-      static_cast<const uint4*>(b), static_cast<const uint8_t*>(b_valid),
-      static_cast<int32_t*>(d1), static_cast<int32_t*>(i1),
-      static_cast<int32_t*>(d2), static_cast<int32_t*>(best_a), cap, ka, kb,
-      b_batched, big, excl);
+  int dev = 0, n_sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+
+  // rows per CTA: a whole pair when the pairs fill two CTAs per SM, else
+  // the rows spread so that about that many CTAs run
+  const int pairs = n_q * cap;
+  const int row_tiles = (ka + kTileRows - 1) / kTileRows;
+  int split = (2 * n_sms + pairs - 1) / pairs;
+  split = split < 1 ? 1 : (split > row_tiles ? row_tiles : split);
+  int rows = kTileRows * ((row_tiles + split - 1) / split);
+  if (rows > kMaxRows) rows = kMaxRows;
+  split = (ka + rows - 1) / rows;
+  // columns per chunk: Kb in equal parts of at most kMaxChunk, rounded to 8
+  const int n_chunks = (kb + kMaxChunk - 1) / kMaxChunk;
+  const int chunk = 8 * ((kb + 8 * n_chunks - 1) / (8 * n_chunks));
+  const size_t smem = (size_t)chunk * 256 + (size_t)chunk * 8 +
+                      (size_t)rows * 8;
+  const size_t smem_max = (size_t)kMaxChunk * 264 + (size_t)kMaxRows * 8;
+
+  static bool attr_set[64] = {};
+  if (dev < 64 && !attr_set[dev]) {
+    err = cudaFuncSetAttribute(hamming_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem_max);
+    if (err != cudaSuccess) return (int)err;
+    attr_set[dev] = true;
+  }
+
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t n_cols = (size_t)pairs * kb;
+  const bool spread = split > 1 && best_a != nullptr;
+  if (spread) {
+    // column keys start above every key: unsigned 0xFFFFFFFF
+    err = cudaMemsetAsync(best_a, 0xFF, n_cols * sizeof(int32_t), st);
+    if (err != cudaSuccess) return (int)err;
+  }
+  Args args;
+  args.a = static_cast<const uint32_t*>(a);
+  args.a_valid = static_cast<const uint8_t*>(a_valid);
+  args.b = static_cast<const uint32_t*>(b);
+  args.b_valid = static_cast<const uint8_t*>(b_valid);
+  args.d1 = static_cast<int32_t*>(d1);
+  args.i1 = static_cast<int32_t*>(i1);
+  args.d2 = static_cast<int32_t*>(d2);
+  args.best_a = static_cast<int32_t*>(best_a);
+  args.cap = cap;
+  args.ka = ka;
+  args.kb = kb;
+  args.b_batched = b_batched;
+  args.big = big;
+  args.excl = excl;
+  args.rows = rows;
+  args.chunk = chunk;
+  args.split = spread ? 1 : 0;
+  hamming_mma_kernel<<<dim3(pairs, split), kThreads, smem, st>>>(args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !spread) return (int)err;
+  const size_t blocks = (n_cols + 255) / 256;
+  keys_to_rows_kernel<<<(unsigned)(blocks < 1024 ? blocks : 1024), 256, 0,
+                        st>>>(static_cast<int32_t*>(best_a), n_cols);
   return (int)cudaGetLastError();
 }
 

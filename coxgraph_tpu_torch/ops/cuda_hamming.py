@@ -23,6 +23,15 @@ Both dispatch by the tensors' device: CUDA tensors launch the kernel in
 ``min``/``argmin``, which return the first index among ties, as JAX's do).
 There is no fallback from the one to the other. All outputs are integers,
 and kernel and plain version agree exactly.
+
+The kernel runs on Hopper's int8 tensor cores: it expands each bit of the
+packed words to a ±1 int8 (zero for an invalid descriptor), so a distance
+is ``(256 − dot) / 2`` of a 256-deep s8 product (``mma.sync`` m16n8k32),
+and reduces in registers on int32 keys ``(d << 16) | index`` — one
+multiply-add on the dot product each, exact because ``d < 2^15`` and
+``index < 2^16`` — hence the limits ``Ka < 65536``, ``Kb ≤ 1024`` and
+``big < 2^15`` checked here. The source's header has the tiling and what
+bounds it.
 """
 
 from __future__ import annotations
@@ -148,7 +157,7 @@ def hamming_match_topk(da: Tensor, db: Tensor):
     int32: best and second-best distance and the best index in ``db`` for
     every row of ``da`` (``pallas_kernels.hamming_match_topk``; any Ka).
 
-    CUDA tensors launch the kernel (one CTA) or raise; CPU tensors run
+    CUDA tensors launch the kernel or raise; CPU tensors run
     ``hamming_match_topk_reference``."""
     if da.device.type == "cpu":
         return hamming_match_topk_reference(da, db)
@@ -164,7 +173,7 @@ def match_topk(a: Tensor, a_valid: Tensor, b: Tensor, b_valid: Tensor,
 
     a (B, Ka, 8) int32, a_valid (B, Ka) bool; b (B or 1, cap, Kb, 8)
     int32, b_valid (B or 1, cap, Kb) bool (a leading 1 is shared by every
-    query). CUDA tensors launch the kernel (one launch, B·cap CTAs) or
+    query). CUDA tensors launch the kernel (one launch) or
     raise; CPU tensors run ``match_topk_reference``."""
     if a.device.type == "cpu":
         return match_topk_reference(a, a_valid, b, b_valid, big, excl)

@@ -146,12 +146,18 @@ def _words(gen, *shape, device):
                          generator=gen, device=device)
 
 
+# K2's edge shapes: Ka not a multiple of its 32-row tile, Kb of 1, 7, 200
+EDGES = [(ka, kb) for ka in (100, 200) for kb in (1, 7, 200)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ka,kb", [(128, 96), (384, 200), (1, 1), (300, 512)])
+@pytest.mark.parametrize("ka,kb", [(128, 96), (384, 200), (1, 1), (300, 512),
+                                   (4000, 1024)] + EDGES)
 def test_hamming_topk_kernel_matches_plain(gpu, ka, kb):
     g = torch.Generator(device=gpu).manual_seed(ka + kb)
     da, db = _words(g, ka, device=gpu), _words(g, kb, device=gpu)
     db[: min(ka, kb) // 2] = da[: min(ka, kb) // 2]    # exact matches
+    db[-1] = db[0]                                     # tied columns
     before = cuda_hamming.LAUNCHES
     got = cuda_hamming.hamming_match_topk(da, db)
     assert cuda_hamming.LAUNCHES == before + 1
@@ -160,21 +166,43 @@ def test_hamming_topk_kernel_matches_plain(gpu, ka, kb):
         assert g_.dtype == torch.int32 and torch.equal(g_, w), name
 
 
+def _match_inputs(g, nq, cap, ka, kb, shared, device):
+    """Exact matches, a repeated row, column and slot (ties across rows,
+    columns and slots), query row 1 and database column 2 invalid, the
+    last slot and (nq > 1) the last query wholly invalid."""
+    a = _words(g, nq, ka, device=device)
+    b = _words(g, 1 if shared else nq, cap, kb, device=device)
+    n = min(ka, kb) // 2
+    b[:, :, :n] = a[0, :n] if shared else a[:, None, :n]
+    b[:, :, -1] = b[:, :, 0]
+    a[:, -1] = a[:, 0]
+    if cap > 2:
+        b[:, 2] = b[:, 1]
+    av = torch.rand(nq, ka, generator=g, device=device) < 0.9
+    bv = torch.rand(b.shape[:-1], generator=g, device=device) < 0.9
+    av[0, 1] = False
+    bv[:, 0, 2 % kb] = False
+    bv[:, -1] = False
+    if nq > 1:
+        av[-1] = False
+    return a, av, b, bv
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shared", [True, False])
-def test_match_topk_kernel_matches_plain(gpu, shared):
-    """The batched masked form, with ties (repeated columns), invalid rows
-    and columns, and an all-invalid query."""
-    g = torch.Generator(device=gpu).manual_seed(int(shared))
-    B, cap, K = 4, 24, 384
-    a = _words(g, B, K, device=gpu)
-    b = _words(g, 1 if shared else B, cap, K, device=gpu)
-    b[:, :, :40] = a[0, :40] if shared else a[:, None, :40]
-    b[:, :, 40:60] = b[:, :, 20:40]
-    av = torch.rand(B, K, generator=g, device=gpu) < 0.9
-    av[3] = False
-    bv = torch.rand(b.shape[:-1], generator=g, device=gpu) < 0.9
+@pytest.mark.parametrize("shared,nq,cap,ka,kb", [
+    (True, 4, 24, 384, 384), (False, 4, 24, 384, 384),
+    (False, 16, 1, 384, 384),            # the verify launch (b per query)
+    (True, 2, 3, 64, 1000)]              # three column chunks
+    + [(s, 3, 4 if s else 2, ka, kb) for s in (True, False)
+       for ka, kb in EDGES])
+def test_match_topk_kernel_matches_plain(gpu, shared, nq, cap, ka, kb):
+    """The batched masked form, with ties across columns, rows and slots,
+    invalid rows, columns, a whole invalid slot and query."""
+    g = torch.Generator(device=gpu).manual_seed(int(shared) + ka + kb)
+    a, av, b, bv = _match_inputs(g, nq, cap, ka, kb, shared, gpu)
+    before = cuda_hamming.LAUNCHES
     got = cuda_hamming.match_topk(a, av, b, bv, 10_000, 10_000)
+    assert cuda_hamming.LAUNCHES == before + 1
     want = cuda_hamming.match_topk_reference(a, av, b, bv, 10_000, 10_000)
     for g_, w, name in zip(got, want, ("d1", "i1", "d2", "best_a")):
         assert torch.equal(g_, w), name

@@ -79,13 +79,18 @@
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kWarps = 12;         // three warpgroups
 constexpr int kThreads = 32 * kWarps;
-constexpr int kTileRows = 32;      // query rows per warp tile: two m16 tiles
-constexpr int kMaxChunk = 384;     // database columns unpacked at a time
-constexpr int kMaxRows = 512;      // query rows per CTA
+constexpr int kUnitRows = 128;     // query rows per warpgroup unit: 2 x m64
+constexpr int kN = 32;             // database columns per wgmma (m64n32k32)
+constexpr int kMaxChunk = 512;     // database columns unpacked at a time
+constexpr int kMaxRows = 512;      // query rows per CTA and query
+constexpr int kMaxGroup = 2;       // queries per CTA sharing a database row
 constexpr int kSteps = 8;          // 32-deep k-steps of a 256-bit descriptor
 constexpr int kUnpack = 8;         // unpack items whose loads are in flight
+// B in shared memory: 8-column x 16-byte core matrices, K-major, no swizzle
+constexpr uint32_t kLbo = 128;     // between the two 16-byte halves of a k32
+constexpr uint32_t kSbo = 2048;    // between 8-column groups (256 B x 8)
 
 struct Args {
   const uint32_t* a;        // (n_q, ka, 8) words
@@ -96,9 +101,10 @@ struct Args {
   int32_t* i1;
   int32_t* d2;
   int32_t* best_a;          // (n_q, cap, kb) or null
-  int cap, ka, kb, b_batched, big, excl;
-  int rows;                 // query rows per CTA (a multiple of 32)
-  int chunk;                // database columns per chunk (a multiple of 8)
+  int n_q, cap, ka, kb, b_batched, big, excl;
+  int group;                // queries per CTA (1 when b is per query)
+  int rows;                 // query rows per CTA (a multiple of 128)
+  int chunk;                // database columns per chunk (a multiple of 32)
   int split;                // rows of a pair spread over several CTAs
 };
 
@@ -116,83 +122,194 @@ __device__ __forceinline__ uint32_t expand4(uint32_t w, int shift) {
   return u * 0xFFFFFF02u + 0xFFFFFFFFu;   // ~(u * 0xFE), bytewise
 }
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // key = (d << 16) | index from the s32 sum and the index's constant
 __device__ __forceinline__ int key_of(int dot, int k) {
   return dot * -32768 + k;
 }
 
-__global__ void __launch_bounds__(kThreads, 2)
-    hamming_mma_kernel(const Args p) {
-  extern __shared__ uint4 smem[];
-  const int n_tiles8 = p.chunk / 8;
-  uint4* sb = smem;                                    // (chunk/8, 4, 32)
-  int* scol = reinterpret_cast<int*>(sb + n_tiles8 * 128);  // (chunk,)
-  int* skey = scol + p.chunk;                          // (chunk,)
-  int* sm1 = skey + p.chunk;                           // (rows,)
-  int* sm2 = sm1 + p.rows;                             // (rows,)
+// keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous wgmma that owns it
+__device__ __forceinline__ void reg_fence(int (&d)[2][16]) {
+#pragma unroll
+  for (int m = 0; m < 2; ++m) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(d[m][i])::"memory");
+  }
+}
 
-  const int pair = blockIdx.x;                         // q * cap + j
-  const int q = pair / p.cap;
-  const int j = pair - q * p.cap;
-  const size_t brow = p.b_batched ? (size_t)pair : (size_t)j;
+// shared-memory matrix descriptor of B at byte address `addr`
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         (uint64_t)((kLbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((kSbo >> 4) & 0x3FFF) << 32;   // layout 0: no swizzle
+}
+
+// d (64 x 32 s32) = A (64 x 32 s8, this warp's 16 rows in registers, the
+// m16n8k32 fragment layout) x B^T (32 x 32 s8 in shared memory) [+ d]
+__device__ __forceinline__ void wgmma_n32(int (&d)[16], const uint32_t (&a)[4],
+                                          uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
+// the 16 wgmma of one 32-column group: two m64 tiles x eight k-steps
+__device__ __forceinline__ void issue(int (&acc)[2][16],
+                                      const uint32_t (&af)[2][kSteps][4],
+                                      uint64_t desc) {
+  reg_fence(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int s = 0; s < kSteps; ++s) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      wgmma_n32(acc[m], af[m][s], desc + (uint64_t)(s * 256 >> 4), s > 0);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait(int (&acc)[2][16]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+  reg_fence(acc);
+}
+
+struct RowState {
+  int m1[2][2], m2[2][2];   // row top-2 keys [m64 tile][half]
+  int rk[2][2];             // column-key constants of the rows
+};
+
+// top-2 and column minimum of one 32-column group's sums: acc[m][4 i + 2 h
+// + e] is row 64 m + 16 warp + 8 h + g of the unit, column 32 n + 8 i + 2 t
+// + e of the chunk
+template <bool kCols>
+__device__ __forceinline__ void epilogue(const int (&acc)[2][16],
+                                         RowState& st, const int* scol,
+                                         int* skey, int* scratch, int n,
+                                         int lane) {
+  const int t = lane & 3;
+  int part[8];   // column minimum over this thread's four rows
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int2 cc =
+        *reinterpret_cast<const int2*>(scol + kN * n + 8 * i + 2 * t);
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k0 = key_of(acc[m][4 * i + 2 * h], cc.x);
+        const int k1 = key_of(acc[m][4 * i + 2 * h + 1], cc.y);
+        const int lo = min(k0, k1);
+        st.m2[m][h] = min3(st.m2[m][h], max(st.m1[m][h], lo), max(k0, k1));
+        st.m1[m][h] = min(st.m1[m][h], lo);
+      }
+    }
+    if (kCols) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        part[2 * i + e] = min(min3(key_of(acc[0][4 * i + e], st.rk[0][0]),
+                                   key_of(acc[0][4 * i + 2 + e], st.rk[0][1]),
+                                   key_of(acc[1][4 * i + e], st.rk[1][0])),
+                              key_of(acc[1][4 * i + 2 + e], st.rk[1][1]));
+      }
+    }
+  }
+  if (kCols) {
+    // transpose through the warp's scratch: lane l then takes column l of
+    // the group from the eight row groups g (conflict-free: word 32 g +
+    // 8 t + 2 i + e) and folds it into the column key with one atomicMin
+    int4* mine = reinterpret_cast<int4*>(scratch) + 2 * lane;
+    mine[0] = make_int4(part[0], part[1], part[2], part[3]);
+    mine[1] = make_int4(part[4], part[5], part[6], part[7]);
+    __syncwarp();
+    const int* col = scratch + 8 * ((lane >> 1) & 3) + 2 * (lane >> 3) +
+                     (lane & 1);
+    int k = min3(col[0], col[32], col[64]);
+    k = min3(k, col[96], col[128]);
+    k = min3(k, col[160], col[192]);
+    k = min(k, col[224]);
+    atomicMin(&skey[kN * n + lane], k);
+    __syncwarp();   // the scratch is written again by the next group
+  }
+}
+
+template <bool kCols>
+__global__ void __launch_bounds__(kThreads, 1)
+    hamming_wgmma_kernel(const Args p) {
+  extern __shared__ __align__(128) uint4 smem[];
+  uint4* sb = smem;                                    // (chunk, 256 B)
+  int* scol = reinterpret_cast<int*>(sb + p.chunk * 16);    // (chunk,)
+  int* skey = scol + p.chunk;                          // (group, chunk)
+  int* sm1 = skey + p.group * p.chunk;                 // (group, rows)
+  int* sm2 = sm1 + p.group * p.rows;                   // (group, rows)
+  int* scratch = sm2 + p.group * p.rows;               // (warps, 256)
+  const uint32_t sb_addr =
+      static_cast<uint32_t>(__cvta_generic_to_shared(sb));
+
+  // this CTA: database row j against queries q0 .. q0 + nqg - 1
+  const int j = blockIdx.x % p.cap;
+  const int q0 = blockIdx.x / p.cap * p.group;
+  const int nqg = min(p.group, p.n_q - q0);
+  const size_t brow = p.b_batched ? (size_t)q0 * p.cap + j : (size_t)j;
   const int row0 = blockIdx.y * p.rows;
   const int row_end = min(p.ka, row0 + p.rows);
-  const int row_tiles = (row_end - row0 + kTileRows - 1) / kTileRows;
-  const int warp = threadIdx.x >> 5;
+  const int row_units = (row_end - row0 + kUnitRows - 1) / kUnitRows;
+  // warp indices broadcast from lane 0, so that the compiler sees them
+  // warp-uniform (wgmma in a path it deems divergent is serialized)
+  const int warp = __shfl_sync(0xFFFFFFFFu, (int)threadIdx.x >> 5, 0);
+  const int wg = warp >> 2;          // warpgroup
+  const int wq = warp & 3;           // warp in the warpgroup
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;           // fragment row group
   const int t = lane & 3;            // thread in group
-  const bool want_cols = p.best_a != nullptr;
   const int n_chunks = (p.kb + p.chunk - 1) / p.chunk;
 
   for (int ch = 0; ch < n_chunks; ++ch) {
     const int c0 = ch * p.chunk;
     const int kc = min(p.chunk, p.kb - c0);
-    const int nt = (kc + 7) / 8;
+    const int ng = (kc + kN - 1) / kN;    // 32-column groups
     const bool last = ch == n_chunks - 1;
-    __syncthreads();   // the previous chunk's fragments and keys are read
+    __syncthreads();   // the previous chunk's operands and keys are read
 
-    // ---- unpack: one uint4 per (8-column tile, k-step pair, lane) ------
-    // lane l holds column 8 tile + l / 4; its registers b0, b1 of k-steps
-    // 2 sp and 2 sp + 1: bits 4 t.. and 16 + 4 t.. of words 2 sp, 2 sp + 1.
-    // The global loads of kUnpack items are issued before any is expanded.
-    for (int base = threadIdx.x; base < nt * 128; base += kUnpack * kThreads) {
-      uint2 w[kUnpack];
+    // ---- unpack: one 16-byte core-matrix row per item --------------------
+    // item it: column c = 8 (it / 128) + it % 8, k-chunk kc16 = (it / 8) % 16
+    // (bits 16 kc16 .. 16 kc16 + 15), at byte 16 it of the operand
+    for (int base = threadIdx.x; base < ng * kN * 16;
+         base += kUnpack * kThreads) {
+      uint32_t w[kUnpack];
       bool live[kUnpack];
 #pragma unroll
       for (int u = 0; u < kUnpack; ++u) {
         const int it = base + u * kThreads;
-        const int c = (it >> 7) * 8 + ((it & 31) >> 2);
+        const int c = (it >> 7) * 8 + (it & 7);
         const size_t col = brow * p.kb + c0 + c;
-        live[u] = it < nt * 128 && c < kc &&
+        live[u] = it < ng * kN * 16 && c < kc &&
                   (p.b_valid == nullptr || p.b_valid[col]);
-        w[u] = live[u] ? reinterpret_cast<const uint2*>(p.b)[col * 4 +
-                                                           ((it >> 5) & 3)]
-                       : make_uint2(0u, 0u);
+        w[u] = live[u] ? p.b[col * 8 + ((it >> 4) & 7)] : 0u;
       }
 #pragma unroll
       for (int u = 0; u < kUnpack; ++u) {
         const int it = base + u * kThreads;
-        const int tt = it & 3;
+        const int sh = (it & 8) ? 16 : 0;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
         if (live[u]) {
-          v.x = expand4(w[u].x, 4 * tt);
-          v.y = expand4(w[u].x, 16 + 4 * tt);
-          v.z = expand4(w[u].y, 4 * tt);
-          v.w = expand4(w[u].y, 16 + 4 * tt);
+          v.x = expand4(w[u], sh);
+          v.y = expand4(w[u], sh + 4);
+          v.z = expand4(w[u], sh + 8);
+          v.w = expand4(w[u], sh + 12);
         }
-        if (it < nt * 128) sb[it] = v;
+        if (it < ng * kN * 16) sb[it] = v;
       }
     }
-    for (int c = threadIdx.x; c < nt * 8; c += kThreads) {
+    for (int c = threadIdx.x; c < ng * kN; c += kThreads) {
       int k = INT_MAX;
       if (c < kc) {
         const size_t col = brow * p.kb + c0 + c;
@@ -200,31 +317,37 @@ __global__ void __launch_bounds__(kThreads, 2)
         k = ok ? ((256 << 15) | (c0 + c)) : ((p.big << 16) | (c0 + c));
       }
       scol[c] = k;
-      skey[c] = INT_MAX;
+      for (int qi = 0; qi < p.group; ++qi) skey[qi * p.chunk + c] = INT_MAX;
     }
+    // the generic-proxy writes of B must be visible to wgmma's async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
 
-    // ---- tensor cores and epilogue, one 32-row tile per warp at a time --
-    for (int tile = warp; tile < row_tiles; tile += kWarps) {
-      const int rbase = row0 + tile * kTileRows;
-      uint32_t af[2][kSteps][4];   // A fragments [m16 tile][k-step][reg]
-      int rk[2][2];                // column-key constants [m16 tile][half]
-      int m1[2][2], m2[2][2];      // row top-2 keys
+    // ---- units: (query of the group, 128 rows), one per warpgroup --------
+    for (int unit = wg; unit < nqg * row_units; unit += kWarps / 4) {
+      const int qi = unit / row_units;
+      const int q = q0 + qi;
+      const int rbase = row0 + (unit - qi * row_units) * kUnitRows;
+      int* skey_q = skey + qi * p.chunk;
+      int* sm1_q = sm1 + qi * p.rows - row0;
+      int* sm2_q = sm2 + qi * p.rows - row0;
+      uint32_t af[2][kSteps][4];   // A fragments [m64 tile][k-step][reg]
+      RowState st;
 #pragma unroll
       for (int m = 0; m < 2; ++m) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int r = rbase + 16 * m + 8 * h + g;
+          const int r = rbase + 64 * m + 16 * wq + 8 * h + g;
           uint4 w0 = make_uint4(0u, 0u, 0u, 0u), w1 = w0;
           bool ok = false;
-          rk[m][h] = INT_MAX;
+          st.rk[m][h] = INT_MAX;
           if (r < row_end) {
             const size_t ar = (size_t)q * p.ka + r;
             const uint4* pa = reinterpret_cast<const uint4*>(p.a) + 2 * ar;
             w0 = pa[0];
             w1 = pa[1];
             ok = p.a_valid == nullptr || p.a_valid[ar];
-            rk[m][h] = ok ? ((256 << 15) | r) : ((p.big << 16) | r);
+            st.rk[m][h] = ok ? ((256 << 15) | r) : ((p.big << 16) | r);
           }
           const uint32_t keep = ok ? 0xFFFFFFFFu : 0u;
           const uint32_t w[kSteps] = {w0.x, w0.y, w0.z, w0.w,
@@ -235,61 +358,21 @@ __global__ void __launch_bounds__(kThreads, 2)
             af[m][s][2 + h] = expand4(w[s], 16 + 4 * t) & keep;
           }
           const bool carry = ch > 0 && t == 0 && r < row_end;
-          m1[m][h] = carry ? sm1[r - row0] : INT_MAX;
-          m2[m][h] = carry ? sm2[r - row0] : INT_MAX;
+          st.m1[m][h] = carry ? sm1_q[r] : INT_MAX;
+          st.m2[m][h] = carry ? sm2_q[r] : INT_MAX;
         }
       }
 
-#pragma unroll 2
-      for (int n = 0; n < nt; ++n) {
-        const uint4* fb = sb + n * 128 + lane;
-        uint4 bq[4];
-#pragma unroll
-        for (int sp = 0; sp < 4; ++sp) bq[sp] = fb[32 * sp];
-        // two accumulator chains per m16 tile (even and odd k-steps) halve
-        // the dependent mma.sync latency
-        int acc[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-        int odd[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-#pragma unroll
-        for (int sp = 0; sp < 4; ++sp) {
-#pragma unroll
-          for (int m = 0; m < 2; ++m) {
-            mma_s8(acc[m], af[m][2 * sp], bq[sp].x, bq[sp].y);
-            mma_s8(odd[m], af[m][2 * sp + 1], bq[sp].z, bq[sp].w);
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[m][i] += odd[m][i];
-        }
-        // acc[m][2 h + e]: row 16 m + 8 h + g of the tile, column
-        // 8 n + 2 t + e
-        const int2 cc = *reinterpret_cast<const int2*>(scol + 8 * n + 2 * t);
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int k0 = key_of(acc[m][2 * h], cc.x);
-            const int k1 = key_of(acc[m][2 * h + 1], cc.y);
-            const int lo = min(k0, k1);
-            m2[m][h] = min3(m2[m][h], max(m1[m][h], lo), max(k0, k1));
-            m1[m][h] = min(m1[m][h], lo);
-          }
-        }
-        if (want_cols) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            int k = min(min3(key_of(acc[0][e], rk[0][0]),
-                             key_of(acc[0][2 + e], rk[0][1]),
-                             key_of(acc[1][e], rk[1][0])),
-                        key_of(acc[1][2 + e], rk[1][1]));
-            k = min(k, __shfl_xor_sync(0xFFFFFFFFu, k, 4));
-            k = min(k, __shfl_xor_sync(0xFFFFFFFFu, k, 8));
-            k = min(k, __shfl_xor_sync(0xFFFFFFFFu, k, 16));
-            if (g == 0) atomicMin(&skey[8 * n + 2 * t + e], k);
-          }
-        }
+      // one 32-column group at a time: 16 wgmma back to back, then the
+      // epilogue; the other warpgroup's epilogue runs under these wgmma
+      const uint64_t desc0 = b_desc(sb_addr);
+      const uint64_t group_step = (uint64_t)(kN / 8 * kSbo >> 4);
+      int acc[2][16];
+      for (int n = 0; n < ng; ++n) {
+        issue(acc, af, desc0 + n * group_step);
+        wait<0>(acc);
+        epilogue<kCols>(acc, st, scol, skey_q, scratch + 256 * warp, n,
+                        lane);
       }
 
       // the four lanes of a quad hold one row's top-2 over their columns
@@ -297,48 +380,48 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int m = 0; m < 2; ++m) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
+          int m1 = st.m1[m][h], m2 = st.m2[m][h];
 #pragma unroll
           for (int off = 1; off <= 2; off <<= 1) {
-            const int o1 = __shfl_xor_sync(0xFFFFFFFFu, m1[m][h], off);
-            const int o2 = __shfl_xor_sync(0xFFFFFFFFu, m2[m][h], off);
-            m2[m][h] = min3(max(m1[m][h], o1), m2[m][h], o2);
-            m1[m][h] = min(m1[m][h], o1);
+            const int o1 = __shfl_xor_sync(0xFFFFFFFFu, m1, off);
+            const int o2 = __shfl_xor_sync(0xFFFFFFFFu, m2, off);
+            m2 = min3(max(m1, o1), m2, o2);
+            m1 = min(m1, o1);
           }
-          const int r = rbase + 16 * m + 8 * h + g;
+          const int r = rbase + 64 * m + 16 * wq + 8 * h + g;
           if (t != 0 || r >= row_end) continue;
           if (!last) {
-            sm1[r - row0] = m1[m][h];
-            sm2[r - row0] = m2[m][h];
+            sm1_q[r] = m1;
+            sm2_q[r] = m2;
             continue;
           }
-          const size_t o = (size_t)pair * p.ka + r;
+          const size_t o = ((size_t)q * p.cap + j) * p.ka + r;
           const bool ok =
               p.a_valid == nullptr || p.a_valid[(size_t)q * p.ka + r];
-          int d1 = p.big, i1 = 0, d2 = p.big;
-          if (ok) {
-            d1 = m1[m][h] >> 16;
-            i1 = m1[m][h] & 0xFFFF;
-            d2 = m2[m][h] >> 16;
-          }
-          p.d1[o] = d1;
-          p.i1[o] = i1;
+          p.d1[o] = ok ? m1 >> 16 : p.big;
+          p.i1[o] = ok ? m1 & 0xFFFF : 0;
+          const int d2 = ok ? m2 >> 16 : p.big;
           p.d2[o] = p.kb > 1 ? min(p.excl, d2) : p.excl;
         }
       }
     }
 
     // ---- the chunk's column results ------------------------------------
-    if (want_cols) {
+    if (kCols) {
       __syncthreads();
-      for (int c = threadIdx.x; c < kc; c += kThreads) {
-        const size_t col = brow * p.kb + c0 + c;
-        const bool ok = p.b_valid == nullptr || p.b_valid[col];
-        int32_t* out = p.best_a + (size_t)pair * p.kb + c0 + c;
+      for (int idx = threadIdx.x; idx < nqg * kc; idx += kThreads) {
+        const int qi = idx / kc;
+        const int c = idx - qi * kc;
+        const bool ok =
+            p.b_valid == nullptr || p.b_valid[brow * p.kb + c0 + c];
+        const int key = skey[qi * p.chunk + c];
+        int32_t* out =
+            p.best_a + ((size_t)(q0 + qi) * p.cap + j) * p.kb + c0 + c;
         if (!p.split) {
-          *out = ok ? (skey[c] & 0xFFFF) : 0;
+          *out = ok ? (key & 0xFFFF) : 0;
         } else {
           atomicMin(reinterpret_cast<unsigned int*>(out),
-                    ok ? (unsigned int)skey[c] : 0u);
+                    ok ? (unsigned int)key : 0u);
         }
       }
     }
@@ -375,27 +458,39 @@ int cox_hamming_topk(const void* a, const void* a_valid, const void* b,
     err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
 
-  // rows per CTA: a whole pair when the pairs fill two CTAs per SM, else
-  // the rows spread so that about that many CTAs run
+  // queries per CTA: two share the unpacked database row when b is shared
+  // and the CTAs still give every SM one; rows per CTA: all of a query's
+  // when the CTAs give every SM one, else spread so that about that many run
   const int pairs = n_q * cap;
-  const int row_tiles = (ka + kTileRows - 1) / kTileRows;
-  int split = (2 * n_sms + pairs - 1) / pairs;
-  split = split < 1 ? 1 : (split > row_tiles ? row_tiles : split);
-  int rows = kTileRows * ((row_tiles + split - 1) / split);
+  int group = 1;
+  if (!b_batched && n_q >= kMaxGroup &&
+      cap * ((n_q + kMaxGroup - 1) / kMaxGroup) >= n_sms)
+    group = kMaxGroup;
+  const int ctas = cap * ((n_q + group - 1) / group);
+  const int units = (ka + kUnitRows - 1) / kUnitRows;
+  int split = (n_sms + ctas - 1) / ctas;
+  split = split < 1 ? 1 : (split > units ? units : split);
+  int rows = kUnitRows * ((units + split - 1) / split);
   if (rows > kMaxRows) rows = kMaxRows;
   split = (ka + rows - 1) / rows;
-  // columns per chunk: Kb in equal parts of at most kMaxChunk, rounded to 8
+  // columns per chunk: Kb in equal parts of at most kMaxChunk, rounded to
+  // whole 32-column groups
   const int n_chunks = (kb + kMaxChunk - 1) / kMaxChunk;
-  const int chunk = 8 * ((kb + 8 * n_chunks - 1) / (8 * n_chunks));
-  const size_t smem = (size_t)chunk * 256 + (size_t)chunk * 8 +
-                      (size_t)rows * 8;
-  const size_t smem_max = (size_t)kMaxChunk * 264 + (size_t)kMaxRows * 8;
+  const int chunk = kN * ((kb + kN * n_chunks - 1) / (kN * n_chunks));
+  const size_t smem = (size_t)chunk * (256 + 4 + 4 * group) +
+                      (size_t)group * rows * 8 + kWarps * 1024;
+  const size_t smem_max = (size_t)kMaxChunk * (260 + 4 * kMaxGroup) +
+                          (size_t)kMaxGroup * kMaxRows * 8 + kWarps * 1024;
 
   static bool attr_set[64] = {};
   if (dev < 64 && !attr_set[dev]) {
-    err = cudaFuncSetAttribute(hamming_mma_kernel,
+    err = cudaFuncSetAttribute(hamming_wgmma_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_max);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(hamming_wgmma_kernel<false>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem_max);
     if (err != cudaSuccess) return (int)err;
     attr_set[dev] = true;
   }
@@ -417,16 +512,22 @@ int cox_hamming_topk(const void* a, const void* a_valid, const void* b,
   args.i1 = static_cast<int32_t*>(i1);
   args.d2 = static_cast<int32_t*>(d2);
   args.best_a = static_cast<int32_t*>(best_a);
+  args.n_q = n_q;
   args.cap = cap;
   args.ka = ka;
   args.kb = kb;
   args.b_batched = b_batched;
   args.big = big;
   args.excl = excl;
+  args.group = group;
   args.rows = rows;
   args.chunk = chunk;
   args.split = spread ? 1 : 0;
-  hamming_mma_kernel<<<dim3(pairs, split), kThreads, smem, st>>>(args);
+  if (best_a != nullptr)
+    hamming_wgmma_kernel<true><<<dim3(ctas, split), kThreads, smem, st>>>(args);
+  else
+    hamming_wgmma_kernel<false><<<dim3(ctas, split), kThreads, smem, st>>>(
+        args);
   err = cudaGetLastError();
   if (err != cudaSuccess || !spread) return (int)err;
   const size_t blocks = (n_cols + 255) / 256;

@@ -95,6 +95,29 @@ def _time_ms(fn, reps: int = EVENT_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph, replayed ``replays`` times between CUDA events, after
+    a warm-up call and replay. A microsecond kernel behind a Python wrapper
+    is otherwise timed at the host's call rate."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def _sm_clock_hz() -> float:
     """The card's maximum SM clock, as nvidia-smi reports it."""
     out = subprocess.run(
@@ -424,17 +447,22 @@ def phase_hamming(device, ident):
         torch.cuda.empty_cache()
         # one launch at the main path's shape, and one over the whole pool
         bc, bvc = b[:, :chunk].contiguous(), bv[:, :chunk].contiguous()
+        # the kernel's device time from graph replays; its back-to-back
+        # time (host wrapper included) beside it; plain version and matmul
+        # route (milliseconds each) back to back
         times = {}
         for tag in ("plain", "kernel", "matmul", "kernel", "plain",
-                    "matmul"):
+                    "matmul", "back to back"):
             fn = {"kernel": lambda: ch.match_topk(a, av, bc, bvc, BIG, BIG),
                   "plain": lambda: ch.match_topk_reference(
                       a, av, bc, bvc, BIG, BIG),
-                  "matmul": lambda: _matmul_route(a, av, bc, bvc)}[tag]
+                  "matmul": lambda: _matmul_route(a, av, bc, bvc)}.get(
+                      tag, lambda: ch.match_topk(a, av, bc, bvc, BIG, BIG))
             times.setdefault(tag, []).append(
-                _time_ms(fn, 20 if tag == "kernel" else 5))
-        pool_ms = _time_ms(lambda: ch.match_topk(a, av, b, bv, BIG, BIG),
-                           10)
+                _graph_ms(fn) if tag == "kernel"
+                else _time_ms(fn, 50 if tag == "back to back" else 5))
+        pool_ms = _graph_ms(
+            lambda: ch.match_topk(a, av, b, bv, BIG, BIG), 5, 4)
         bound, by, route, floors = _k2_bound(B, chunk, K, K, clock, n_sms)
         pool_bound, _, _, pool_floors = _k2_bound(B, cap, K, K, clock, n_sms)
         k_ms, p_ms, m_ms = (min(times[t]) for t in ("kernel", "plain",
@@ -444,7 +472,9 @@ def phase_hamming(device, ident):
         print(f"[7] {point}: {B} queries x {cap} slots x {K}^2, "
               f"{n_match} rows with d1 <= 64; one launch of {chunk} slots "
               f"(the main path's): kernel {k_ms * 1e3:.1f} us "
-              f"{times['kernel']}, plain {p_ms * 1e3:.1f} us "
+              f"{times['kernel']} (back to back, host wrapper included: "
+              f"{times['back to back'][0] * 1e3:.1f} us), plain "
+              f"{p_ms * 1e3:.1f} us "
               f"{times['plain']}, matmul route {m_ms * 1e3:.1f} us "
               f"{times['matmul']}, bound {bound * 1e3:.1f} us ({by}, "
               f"{route}; floors {us}); whole pool in one launch "

@@ -15,8 +15,9 @@
 //
 // Encoding. Each bit becomes one int8, +1 for a set bit and -1 for a clear
 // one, so dot(a, b) = 256 - 2 d and d = (256 - dot) / 2: a 256-deep s8 x s8
-// product with s32 sums. The packed words are expanded in registers, four
-// bits to four bytes in four integer operations (expand4). A descriptor's 32
+// product with s32 sums. The packed words are expanded four bits to four
+// bytes in four integer operations (expand4): the query rows into
+// registers, the database columns into shared memory. A descriptor's 32
 // bytes become 256, once per descriptor per CTA: 1/Ka of the per-distance
 // work. An invalid descriptor's int8 row is zero, so every dot product with
 // it is 0.
@@ -35,43 +36,53 @@
 //     time with one 3-input min (Hopper's DPX __vimin3_s32). Keys are unique
 //     per row, so m1 gives d1 and i1 (ties to the lowest column) and the
 //     distance in m2 is d2 exactly, ties included.
-//   * Column minimum: one min per distance, then a shuffle tree over the
-//     eight row groups of the warp and a shared atomicMin per column.
+//   * Column minimum: one min per distance, the keys' minimum over the rows
+//     of a warp, then a shared atomicMin per column and CTA.
 //   * Closed forms: an invalid row's outputs are d1 = big, i1 = 0,
 //     d2 = min(excl, big) when Kb > 1 and excl when Kb = 1; an invalid
 //     column's best_a is 0 (every entry of the column is big).
 //
-// Tiling (mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32; both operands are
-// K-major, as descriptors are). One CTA of 8 warps per (pair, row range). The
-// CTA unpacks up to 384 database columns at a time into shared memory, laid
-// out fragment-native: per 8-column tile, per pair of 32-deep k-steps, each
-// lane's four B registers are one uint4, so a warp reads a tile's fragments
-// with four conflict-free 128-bit loads (no ldmatrix needed). Each warp takes
-// 32 query rows (two m16 tiles) and holds their A fragments, the whole
-// 256-deep descriptor, in 64 registers; it walks the chunk's 8-column tiles:
-// 16 mma.sync, then the epilogue on the eight s32 sums in registers. Rows
-// beyond 8 x 32 loop over the warps. Kb > 384 is split into equal chunks of
-// at most 384 columns (512 -> 2 x 256); a row's top-2 is kept in shared
-// memory between chunks.
-//   Shared memory: chunk x 256 B of fragments (96 KB at 384) + 8 B per chunk
-//   column (constants, keys) + 8 B per CTA row (<= 512 rows): <= 103 KB, so
-//   two CTAs share an SM (__launch_bounds__(256, 2), <= 128 registers).
-//   Decomposition: a launch of at least 2 x SMs pairs (the detector's scoring
-//   launches: 8 x 64 or 4 x 128 pairs) takes one CTA per pair, ~4 waves on
-//   132 SMs. A launch with fewer pairs (verification: 2-16; the one pair of
-//   hamming_match_topk) splits the rows of each pair over CTAs; each CTA
-//   atomicMin's its column keys into best_a in global memory (min is
-//   order-free, so the result is deterministic) and a second kernel turns
-//   the keys into row indices.
+// Tiling (wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8; both operands
+// are K-major, as descriptors are). A CTA of three warpgroups takes one
+// database row j and, when b is shared by the queries and the launch still
+// gives every SM a CTA, two queries (the detector's scoring launches: 64 x 4
+// or 128 x 2 CTAs); it unpacks up to 512 database columns at a time into
+// shared memory once for both, as 8-column x 16-byte core matrices without
+// swizzle (LBO 128 B between the two halves of a k32 step, SBO 2 KB between
+// 8-column groups). A warpgroup takes a unit of 128 query rows (two m64
+// tiles) and holds their A fragments, the whole 256-deep descriptor, in 64
+// registers per thread (the m16n8k32 fragment layout, which wgmma takes for
+// A in registers); it walks the chunk in 32-column groups: 16 wgmma issued
+// back to back and committed, a wait, then the epilogue on the 32 s32 sums
+// per thread. The three warpgroups run out of step, so one's epilogue runs
+// under another's wgmma. (Two accumulator sets per warpgroup would overlap
+// within it, but ptxas then serializes every wgmma: it cannot follow which
+// set a pending group owns.) Kb > 512 is split into equal chunks, a row's
+// top-2 kept in shared memory between chunks.
+//   Column minimum: a thread first takes the minimum over its four rows;
+//   then the warp transposes its 8 x 32 partials through 1 KB of shared
+//   memory (two 16-byte stores per lane, conflict-free reads), and each lane
+//   folds one column into the CTA's column key with one shared atomicMin —
+//   far cheaper than a three-level shuffle tree per column.
+//   Shared memory: chunk x 256 B of B (128 KB at 512) + 12 B per chunk
+//   column (constants, two queries' keys) + 16 B per CTA row + 12 KB of
+//   transpose scratch: <= 154 KB, one CTA (384 threads, <= 168 registers)
+//   per SM.
+//   Launches with fewer CTAs than SMs (verification: 2-16 pairs with b per
+//   query; hamming_match_topk's one pair) spread the rows of each pair over
+//   CTAs; each CTA atomicMin's its column keys into best_a in global memory
+//   (min is order-free, so the result is deterministic) and a second kernel
+//   turns the keys into row indices.
 //
 // What bounds it. At the endurance launch (8 queries x 64 slots x 384^2 =
 // 75.5 M distances) the int8 tensor cores need 75.5 M x 512 operations at
-// 1,979 TOP/s = 19.5 us. The epilogue is the second floor: ~5 integer
-// operations per distance (two IMADs, the top-2's ~2.5, the column min's
-// ~0.5) at 64 per clock per SM on 132 SMs at 1.98 GHz is 18-27 us, and
-// mma.sync issues from the same warps, so the two add up rather than
-// overlap. Shared-memory reads of B are a third: 8 bytes per distance for 32
-// rows per warp, 128 B per clock per SM, ~18 us. Bytes are small (6 MB).
+// 1,979 TOP/s = 19.5 us. The epilogue is a second floor of the same size:
+// ~6 integer operations per distance (two IMADs for the keys, ~2.5 for the
+// row top-2, ~1 for the column minimum, the transpose) at 64 per clock per
+// SM on 132 SMs at 1.98 GHz is ~25 us of issue, and one CTA of 12 warps per
+// SM hides its latency only in part. The unpack of B (4 integer operations
+// per 4 bytes, ~6 us at the endurance launch) is the third. Bytes are small
+// (6 MB).
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -523,11 +534,11 @@ int cox_hamming_topk(const void* a, const void* a_valid, const void* b,
   args.rows = rows;
   args.chunk = chunk;
   args.split = spread ? 1 : 0;
+  const dim3 grid(ctas, split);
   if (best_a != nullptr)
-    hamming_wgmma_kernel<true><<<dim3(ctas, split), kThreads, smem, st>>>(args);
+    hamming_wgmma_kernel<true><<<grid, kThreads, smem, st>>>(args);
   else
-    hamming_wgmma_kernel<false><<<dim3(ctas, split), kThreads, smem, st>>>(
-        args);
+    hamming_wgmma_kernel<false><<<grid, kThreads, smem, st>>>(args);
   err = cudaGetLastError();
   if (err != cudaSuccess || !spread) return (int)err;
   const size_t blocks = (n_cols + 255) / 256;

@@ -26,7 +26,7 @@ and kernel and plain version agree exactly.
 
 The kernel runs on Hopper's int8 tensor cores: it expands each bit of the
 packed words to a ±1 int8 (zero for an invalid descriptor), so a distance
-is ``(256 − dot) / 2`` of a 256-deep s8 product (``mma.sync`` m16n8k32),
+is ``(256 − dot) / 2`` of a 256-deep s8 product (``wgmma`` m64n32k32),
 and reduces in registers on int32 keys ``(d << 16) | index`` — one
 multiply-add on the dot product each, exact because ``d < 2^15`` and
 ``index < 2^16`` — hence the limits ``Ka < 65536``, ``Kb ≤ 1024`` and

@@ -140,12 +140,9 @@ __device__ __forceinline__ int key_of(int dot, int k) {
 
 // keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous wgmma that owns it
-__device__ __forceinline__ void reg_fence(int (&d)[2][16]) {
+__device__ __forceinline__ void reg_fence(int (&d)[16]) {
 #pragma unroll
-  for (int m = 0; m < 2; ++m) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(d[m][i])::"memory");
-  }
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // shared-memory matrix descriptor of B at byte address `addr`
@@ -172,23 +169,27 @@ __device__ __forceinline__ void wgmma_n32(int (&d)[16], const uint32_t (&a)[4],
         "r"(accumulate));
 }
 
-// the 16 wgmma of one 32-column group: two m64 tiles x eight k-steps
+// the 16 wgmma of one 32-column group, committed as two groups (one per
+// m64 tile, eight k-steps each), so that tile 0's epilogue can run while
+// tile 1's products are in flight
 __device__ __forceinline__ void issue(int (&acc)[2][16],
                                       const uint32_t (&af)[2][kSteps][4],
                                       uint64_t desc) {
-  reg_fence(acc);
+  reg_fence(acc[0]);
+  reg_fence(acc[1]);
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
+  for (int m = 0; m < 2; ++m) {
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int s = 0; s < kSteps; ++s)
       wgmma_n32(acc[m], af[m][s], desc + (uint64_t)(s * 256 >> 4), s > 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
   }
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
 
+// waits until at most N committed groups are pending, then releases acc
 template <int N>
-__device__ __forceinline__ void wait(int (&acc)[2][16]) {
+__device__ __forceinline__ void wait(int (&acc)[16]) {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
   reg_fence(acc);
 }
@@ -198,58 +199,56 @@ struct RowState {
   int rk[2][2];             // column-key constants of the rows
 };
 
-// top-2 and column minimum of one 32-column group's sums: acc[m][4 i + 2 h
-// + e] is row 64 m + 16 warp + 8 h + g of the unit, column 32 n + 8 i + 2 t
-// + e of the chunk
-template <bool kCols>
-__device__ __forceinline__ void epilogue(const int (&acc)[2][16],
-                                         RowState& st, const int* scol,
-                                         int* skey, int* scratch, int n,
-                                         int lane) {
-  const int t = lane & 3;
-  int part[8];   // column minimum over this thread's four rows
+// row top-2 of m64 tile M's rows over one 32-column group, and the column
+// minimum over its two rows of the thread folded into part: acc[4 i + 2 h
+// + e] is row 64 M + 16 warp + 8 h + g of the unit, column 32 n + 8 i +
+// 2 t + e of the chunk
+template <bool kCols, int M>
+__device__ __forceinline__ void tile_epilogue(const int (&acc)[16],
+                                              RowState& st, const int* scol,
+                                              int n, int t, int (&part)[8]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int2 cc =
         *reinterpret_cast<const int2*>(scol + kN * n + 8 * i + 2 * t);
 #pragma unroll
-    for (int m = 0; m < 2; ++m) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k0 = key_of(acc[m][4 * i + 2 * h], cc.x);
-        const int k1 = key_of(acc[m][4 * i + 2 * h + 1], cc.y);
-        const int lo = min(k0, k1);
-        st.m2[m][h] = min3(st.m2[m][h], max(st.m1[m][h], lo), max(k0, k1));
-        st.m1[m][h] = min(st.m1[m][h], lo);
-      }
+    for (int h = 0; h < 2; ++h) {
+      const int k0 = key_of(acc[4 * i + 2 * h], cc.x);
+      const int k1 = key_of(acc[4 * i + 2 * h + 1], cc.y);
+      const int lo = min(k0, k1);
+      st.m2[M][h] = min3(st.m2[M][h], max(st.m1[M][h], lo), max(k0, k1));
+      st.m1[M][h] = min(st.m1[M][h], lo);
     }
     if (kCols) {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        part[2 * i + e] = min(min3(key_of(acc[0][4 * i + e], st.rk[0][0]),
-                                   key_of(acc[0][4 * i + 2 + e], st.rk[0][1]),
-                                   key_of(acc[1][4 * i + e], st.rk[1][0])),
-                              key_of(acc[1][4 * i + 2 + e], st.rk[1][1]));
+        const int k = min(key_of(acc[4 * i + e], st.rk[M][0]),
+                          key_of(acc[4 * i + 2 + e], st.rk[M][1]));
+        part[2 * i + e] = M == 0 ? k : min(part[2 * i + e], k);
       }
     }
   }
-  if (kCols) {
-    // transpose through the warp's scratch: lane l then takes column l of
-    // the group from the eight row groups g (conflict-free: word 32 g +
-    // 8 t + 2 i + e) and folds it into the column key with one atomicMin
-    int4* mine = reinterpret_cast<int4*>(scratch) + 2 * lane;
-    mine[0] = make_int4(part[0], part[1], part[2], part[3]);
-    mine[1] = make_int4(part[4], part[5], part[6], part[7]);
-    __syncwarp();
-    const int* col = scratch + 8 * ((lane >> 1) & 3) + 2 * (lane >> 3) +
-                     (lane & 1);
-    int k = min3(col[0], col[32], col[64]);
-    k = min3(k, col[96], col[128]);
-    k = min3(k, col[160], col[192]);
-    k = min(k, col[224]);
-    atomicMin(&skey[kN * n + lane], k);
-    __syncwarp();   // the scratch is written again by the next group
-  }
+}
+
+// the column minimum over the warp's 32 rows, folded into the CTA's keys:
+// the warp transposes its 8 x 32 partials through its scratch; lane l then
+// takes column l of the group from the eight row groups g (conflict-free:
+// word 32 g + 8 t + 2 i + e) and folds it in with one atomicMin
+__device__ __forceinline__ void fold_columns(const int (&part)[8],
+                                             int* skey, int* scratch, int n,
+                                             int lane) {
+  int4* mine = reinterpret_cast<int4*>(scratch) + 2 * lane;
+  mine[0] = make_int4(part[0], part[1], part[2], part[3]);
+  mine[1] = make_int4(part[4], part[5], part[6], part[7]);
+  __syncwarp();
+  const int* col =
+      scratch + 8 * ((lane >> 1) & 3) + 2 * (lane >> 3) + (lane & 1);
+  int k = min3(col[0], col[32], col[64]);
+  k = min3(k, col[96], col[128]);
+  k = min3(k, col[160], col[192]);
+  k = min(k, col[224]);
+  atomicMin(&skey[kN * n + lane], k);
+  __syncwarp();   // the scratch is written again by the next group
 }
 
 template <bool kCols>
@@ -379,11 +378,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint64_t desc0 = b_desc(sb_addr);
       const uint64_t group_step = (uint64_t)(kN / 8 * kSbo >> 4);
       int acc[2][16];
+      int part[8];   // column minimum over this thread's four rows
       for (int n = 0; n < ng; ++n) {
         issue(acc, af, desc0 + n * group_step);
-        wait<0>(acc);
-        epilogue<kCols>(acc, st, scol, skey_q, scratch + 256 * warp, n,
-                        lane);
+        wait<1>(acc[0]);
+        tile_epilogue<kCols, 0>(acc[0], st, scol, n, t, part);
+        wait<0>(acc[1]);
+        tile_epilogue<kCols, 1>(acc[1], st, scol, n, t, part);
+        if (kCols) fold_columns(part, skey_q, scratch + 256 * warp, n, lane);
       }
 
       // the four lanes of a quad hold one row's top-2 over their columns

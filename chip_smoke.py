@@ -76,7 +76,7 @@ BIG = 10_000                   # features.match_descriptors' mask value
 # K2's operating points: (queries per sub-batch, pool slots, keypoints,
 # slots per kernel launch) of the endurance and the stock detector
 K2_POINTS = {"endurance": (8, 512, 384, 64), "stock": (4, 2048, 512, 128)}
-# K2's edge shapes: Ka not a multiple of its 32-row tile, Kb of 1, 7, 200
+# K2's edge shapes: Ka not a multiple of its row tiles, Kb of 1, 7, 200
 K2_EDGES = tuple((ka, kb) for ka in (100, 200) for kb in (1, 7, 200))
 
 
@@ -450,17 +450,19 @@ def phase_hamming(device, ident):
         # the kernel's device time from graph replays; its back-to-back
         # time (host wrapper included) beside it; plain version and matmul
         # route (milliseconds each) back to back
+        def kernel():
+            return ch.match_topk(a, av, bc, bvc, BIG, BIG)
+
+        fns = {"kernel": kernel, "back to back": kernel,
+               "plain": lambda: ch.match_topk_reference(
+                   a, av, bc, bvc, BIG, BIG),
+               "matmul": lambda: _matmul_route(a, av, bc, bvc)}
         times = {}
         for tag in ("plain", "kernel", "matmul", "kernel", "plain",
                     "matmul", "back to back"):
-            fn = {"kernel": lambda: ch.match_topk(a, av, bc, bvc, BIG, BIG),
-                  "plain": lambda: ch.match_topk_reference(
-                      a, av, bc, bvc, BIG, BIG),
-                  "matmul": lambda: _matmul_route(a, av, bc, bvc)}.get(
-                      tag, lambda: ch.match_topk(a, av, bc, bvc, BIG, BIG))
             times.setdefault(tag, []).append(
-                _graph_ms(fn) if tag == "kernel"
-                else _time_ms(fn, 50 if tag == "back to back" else 5))
+                _graph_ms(fns[tag]) if tag == "kernel"
+                else _time_ms(fns[tag], 50 if tag == "back to back" else 5))
         pool_ms = _graph_ms(
             lambda: ch.match_topk(a, av, b, bv, BIG, BIG), 5, 4)
         bound, by, route, floors = _k2_bound(B, chunk, K, K, clock, n_sms)

@@ -119,12 +119,9 @@ struct Args {
   int split;                // rows of a pair spread over several CTAs
 };
 
+// one DPX instruction on sm_90
 __device__ __forceinline__ int min3(int a, int b, int c) {
-#if __CUDACC_VER_MAJOR__ >= 12
-  return __vimin3_s32(a, b, c);   // one DPX instruction on sm_90
-#else
-  return min(min(a, b), c);
-#endif
+  return __vimin3_s32(a, b, c);
 }
 
 // the four bits of w at `shift` as four int8: +1 for a set bit, -1 else
@@ -496,7 +493,7 @@ int cox_hamming_topk(const void* a, const void* a_valid, const void* b,
                           (size_t)kMaxGroup * kMaxRows * 8 + kWarps * 1024;
 
   static bool attr_set[64] = {};
-  if (dev < 64 && !attr_set[dev]) {
+  if (dev >= 64 || !attr_set[dev]) {
     err = cudaFuncSetAttribute(hamming_wgmma_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_max);
@@ -505,7 +502,7 @@ int cox_hamming_topk(const void* a, const void* a_valid, const void* b,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  (int)smem_max);
     if (err != cudaSuccess) return (int)err;
-    attr_set[dev] = true;
+    if (dev < 64) attr_set[dev] = true;
   }
 
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -146,7 +146,7 @@ def _words(gen, *shape, device):
                          generator=gen, device=device)
 
 
-# K2's edge shapes: Ka not a multiple of its 32-row tile, Kb of 1, 7, 200
+# K2's edge shapes: Ka not a multiple of its row tiles, Kb of 1, 7, 200
 EDGES = [(ka, kb) for ka in (100, 200) for kb in (1, 7, 200)]
 
 
@@ -192,7 +192,7 @@ def _match_inputs(g, nq, cap, ka, kb, shared, device):
 @pytest.mark.parametrize("shared,nq,cap,ka,kb", [
     (True, 4, 24, 384, 384), (False, 4, 24, 384, 384),
     (False, 16, 1, 384, 384),            # the verify launch (b per query)
-    (True, 2, 3, 64, 1000)]              # three column chunks
+    (True, 2, 3, 64, 1000)]              # two column chunks
     + [(s, 3, 4 if s else 2, ka, kb) for s in (True, False)
        for ka, kb in EDGES])
 def test_match_topk_kernel_matches_plain(gpu, shared, nq, cap, ka, kb):
@@ -204,6 +204,19 @@ def test_match_topk_kernel_matches_plain(gpu, shared, nq, cap, ka, kb):
     got = cuda_hamming.match_topk(a, av, b, bv, 10_000, 10_000)
     assert cuda_hamming.LAUNCHES == before + 1
     want = cuda_hamming.match_topk_reference(a, av, b, bv, 10_000, 10_000)
+    for g_, w, name in zip(got, want, ("d1", "i1", "d2", "best_a")):
+        assert torch.equal(g_, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ka,kb", [(100, 7), (384, 384)])
+def test_match_topk_kernel_with_a_small_big(gpu, ka, kb):
+    """big (100) below the typical distance: masked entries compete with
+    real ones, so the masked keys' index halves decide ties."""
+    g = torch.Generator(device=gpu).manual_seed(ka + kb)
+    a, av, b, bv = _match_inputs(g, 3, 4, ka, kb, True, gpu)
+    got = cuda_hamming.match_topk(a, av, b, bv, 100, 100)
+    want = cuda_hamming.match_topk_reference(a, av, b, bv, 100, 100)
     for g_, w, name in zip(got, want, ("d1", "i1", "d2", "best_a")):
         assert torch.equal(g_, w), name
 

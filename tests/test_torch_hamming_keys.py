@@ -53,8 +53,9 @@ def emulate(a, a_valid, b, b_valid, big, excl, want_cols=True):
     av = a_valid[:, None, :]                              # (B, 1, Ka)
     bv = b_valid                                          # (B|1, cap, Kb)
     dot = torch.einsum("qik,qjck->qjic", _pm1(a, a_valid), _pm1(b, bv))
-    # padded to whole 8-column tiles, as the kernel's shared memory is
-    kb8 = -(-kb // 8) * 8
+    # padded to whole 32-column groups (one wgmma's width), as the kernel's
+    # shared memory is: zero rows whose row-key constant is INT_MAX
+    kb8 = -(-kb // 32) * 32
     dot = torch.nn.functional.pad(dot, (0, kb8 - kb))
     cols = torch.arange(kb8)
     col_k = torch.where(bv, (256 << 15) | cols[:kb], (big << 16) | cols[:kb])
@@ -131,9 +132,9 @@ def _assert_equal(got, want, names=("d1", "i1", "d2", "best_a")):
 @pytest.mark.parametrize("batched", [False, True])
 @pytest.mark.parametrize("ka,kb", EDGES + [(384, 384), (64, 512)])
 def test_emulation_matches_plain_version(ka, kb, batched):
-    """Masked, batched form at the edge shapes (Ka not a multiple of 32,
-    Kb of 1, 7, 200), at the endurance keypoint count and past one
-    384-column chunk, with b shared and per query."""
+    """Masked, batched form at the edge shapes (Ka not a multiple of the
+    kernel's row tiles, Kb of 1, 7, 200), at the endurance keypoint count
+    and at Kb = 512, with b shared and per query."""
     nq, cap = (3, 4) if not batched else (3, 2)
     args = _edge_inputs(ka * 7 + kb + batched, nq, cap, ka, kb, batched)
     _assert_equal(emulate(*args, BIG, BIG),
@@ -197,3 +198,13 @@ def test_closed_forms_of_invalid_rows_and_columns():
         assert (got[0][0] == BIG).all() and (got[1][0] == 0).all()
         assert (got[2][0] == (min(excl, BIG) if kb > 1 else excl)).all()
         assert (got[3][:, 1] == 0).all()
+
+
+@pytest.mark.parametrize("ka,kb", [(100, 7), (200, 200)])
+def test_emulation_with_a_small_big(ka, kb):
+    """big below the typical distance (100 < ~128): masked entries compete
+    with real ones, so the index half of every masked key and the tie
+    order among masked columns and rows decide the outputs."""
+    args = _edge_inputs(ka + kb, 3, 4, ka, kb, False)
+    _assert_equal(emulate(*args, 100, 100),
+                  cuda_hamming.match_topk_reference(*args, 100, 100))

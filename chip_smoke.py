@@ -29,15 +29,17 @@ anything is wrong:
   7. K2        — hamming_match_topk at (128, 96), (384, 200), self-match
                  and the edge shapes Ka in {100, 200} x Kb in {1, 7, 200};
                  the batched masked matcher at those edge shapes (b shared
-                 and per query; invalid rows, columns, slots, queries; ties
-                 across columns, rows and slots), at the endurance point
-                 (8 queries × 512 slots × 384²) and the stock point
-                 (4 × 2048 × 512²), ~90% valid: kernel ≡ plain version
-                 (and ≡ the ±1 bf16 matmul route) on every integer output,
-                 and so the verify launches' form (b per query) at
-                 (16, 1, 384²) and (2, 1, 512²); CUDA-event times of the
-                 three at the main path's shapes; the bound is the least
-                 of the popc, int8 and bf16 tensor-core floors
+                 over 4 and 140 slots, and per query; invalid rows,
+                 columns, slots, queries; ties across columns, rows and
+                 slots), at the endurance point (8 queries × 512 slots ×
+                 384²) and the stock point (4 × 2048 × 512²), ~90% valid:
+                 kernel ≡ plain version (and ≡ the ±1 bf16 matmul route)
+                 on every integer output, and so the verify launches' form
+                 (b per query) at (16, 1, 384²) and (2, 1, 512²);
+                 CUDA-event times of the three back to back at the main
+                 path's shapes, and the kernel's device time from
+                 CUDA-graph replays; the bound is the least of the popc,
+                 int8 and bf16 tensor-core floors
   8. main path — the endurance detector (tools/endurance_run.py: K = 384,
                  512 slots, 8-frame sub-batches, 64-slot match chunks) on
                  two robots' 640×480 frames rendered on the card, through
@@ -306,7 +308,9 @@ def _edge_inputs(g, nq, cap, ka, kb, batched, device):
     exact matches, a row repeated (a tie across rows), a column repeated
     (across columns), slot 2 a copy of slot 1 (across slots), query row 1
     and database column 2 invalid, the last slot and (nq > 1) the last
-    query wholly invalid."""
+    query wholly invalid. The tests build the same cases
+    (tests/test_torch_cuda.py::edge_cases); this script stands alone, so
+    it keeps its own copy."""
     a = _words(g, nq, ka, device=device)
     b = _words(g, nq if batched else 1, cap, kb, device=device)
     n = min(ka, kb) // 2
@@ -392,9 +396,12 @@ def phase_hamming(device, ident):
 
     # edge shapes (Ka not a multiple of the tile, Kb of 1, 7, 200) with an
     # invalid row, an invalid column, a whole invalid slot and query, and
-    # exact ties across columns, rows and slots; b shared and per query
+    # exact ties across columns, rows and slots; b shared and per query,
+    # and shared over 140 slots (more CTAs than SMs: whole queries per CTA,
+    # the launch shape of the scoring path)
     for ka, kb in K2_EDGES:
-        for nq, cap, batched in ((3, 4, False), (3, 2, True)):
+        for nq, cap, batched in ((3, 4, False), (3, 2, True),
+                                 (3, 140, False)):
             a, av, b, bv = _edge_inputs(g, nq, cap, ka, kb, batched, device)
             got = ch.match_topk(a, av, b, bv, BIG, BIG)
             what = (f"edge {nq}x{cap}x{ka}x{kb} "
@@ -403,7 +410,8 @@ def phase_hamming(device, ident):
                     what)
             compare(got, _matmul_route(a, av, b, bv), what + " matmul")
     print(f"[7] match_topk ≡ plain ≡ matmul route at (Ka, Kb) in "
-          f"{K2_EDGES}, b shared and per query, with invalid rows, "
+          f"{K2_EDGES}, b shared (4 and 140 slots) and per query, with "
+          f"invalid rows, "
           f"columns, slots and queries and tied columns, rows and slots")
 
     # the verify launches: every query against its own database row (b
@@ -445,46 +453,50 @@ def phase_hamming(device, ident):
         n_match = int((got[0] <= 64).sum())
         del got, want
         torch.cuda.empty_cache()
-        # one launch at the main path's shape, and one over the whole pool
-        bc, bvc = b[:, :chunk].contiguous(), bv[:, :chunk].contiguous()
-        # the kernel's device time from graph replays; its back-to-back
-        # time (host wrapper included) beside it; plain version and matmul
-        # route (milliseconds each) back to back
+        # one launch at the main path's shape, and one over the whole pool:
+        # kernel, plain version and matmul route back to back between CUDA
+        # events (the host wrapper included, as K1 is timed); the kernel's
+        # device time alone from CUDA-graph replays
         def kernel():
             return ch.match_topk(a, av, bc, bvc, BIG, BIG)
 
-        fns = {"kernel": kernel, "back to back": kernel,
+        def pool():
+            return ch.match_topk(a, av, b, bv, BIG, BIG)
+
+        bc, bvc = b[:, :chunk].contiguous(), bv[:, :chunk].contiguous()
+        fns = {"kernel": kernel, "graph": kernel,
                "plain": lambda: ch.match_topk_reference(
                    a, av, bc, bvc, BIG, BIG),
                "matmul": lambda: _matmul_route(a, av, bc, bvc)}
         times = {}
-        for tag in ("plain", "kernel", "matmul", "kernel", "plain",
-                    "matmul", "back to back"):
+        for tag in ("plain", "kernel", "graph", "matmul", "kernel", "graph",
+                    "plain", "matmul"):
             times.setdefault(tag, []).append(
-                _graph_ms(fns[tag]) if tag == "kernel"
-                else _time_ms(fns[tag], 50 if tag == "back to back" else 5))
-        pool_ms = _graph_ms(
-            lambda: ch.match_topk(a, av, b, bv, BIG, BIG), 5, 4)
+                _graph_ms(fns[tag]) if tag == "graph"
+                else _time_ms(fns[tag], 20 if tag == "kernel" else 5))
+        pool_ms, pool_device_ms = _time_ms(pool, 10), _graph_ms(pool, 5, 4)
         bound, by, route, floors = _k2_bound(B, chunk, K, K, clock, n_sms)
         pool_bound, _, _, pool_floors = _k2_bound(B, cap, K, K, clock, n_sms)
-        k_ms, p_ms, m_ms = (min(times[t]) for t in ("kernel", "plain",
-                                                    "matmul"))
+        k_ms, dev_ms, p_ms, m_ms = (min(times[t]) for t in (
+            "kernel", "graph", "plain", "matmul"))
         us, pool_us = ({r: f"{v * 1e3:.1f} us" for r, v in x.items()}
                        for x in (floors, pool_floors))
         print(f"[7] {point}: {B} queries x {cap} slots x {K}^2, "
               f"{n_match} rows with d1 <= 64; one launch of {chunk} slots "
               f"(the main path's): kernel {k_ms * 1e3:.1f} us "
-              f"{times['kernel']} (back to back, host wrapper included: "
-              f"{times['back to back'][0] * 1e3:.1f} us), plain "
-              f"{p_ms * 1e3:.1f} us "
+              f"{times['kernel']} back to back, device time "
+              f"{dev_ms * 1e3:.1f} us {times['graph']} (graph replays), "
+              f"plain {p_ms * 1e3:.1f} us "
               f"{times['plain']}, matmul route {m_ms * 1e3:.1f} us "
               f"{times['matmul']}, bound {bound * 1e3:.1f} us ({by}, "
               f"{route}; floors {us}); whole pool in one launch "
-              f"{pool_ms * 1e3:.1f} us vs bound {pool_bound * 1e3:.1f} us "
-              f"(floors {pool_us}; SM clock {clock / 1e9:.3f} GHz, "
-              f"{n_sms} SMs) — {ident}")
-        record[point] = dict(ms=k_ms, plain_ms=p_ms, matmul_ms=m_ms,
-                             pool_ms=pool_ms,
+              f"{pool_ms * 1e3:.1f} us back to back, device time "
+              f"{pool_device_ms * 1e3:.1f} us, vs bound "
+              f"{pool_bound * 1e3:.1f} us (floors {pool_us}; SM clock "
+              f"{clock / 1e9:.3f} GHz, {n_sms} SMs) — {ident}")
+        record[point] = dict(ms=k_ms, device_ms=dev_ms, plain_ms=p_ms,
+                             matmul_ms=m_ms, pool_ms=pool_ms,
+                             pool_device_ms=pool_device_ms,
                              bound_ms=bound, bound_by=by, bound_route=route,
                              popc_bound_ms=floors["popc"])
         del a, b, av, bv, bc, bvc
@@ -774,8 +786,10 @@ def main() -> None:
         "library_ms": None,
         "bound_route": k2["bound_route"],
         "popc_bound_ms": k2["popc_bound_ms"],
+        "device_ms": k2["device_ms"],
         "matmul_ms": k2["matmul_ms"],
         "pool_ms": k2["pool_ms"],
+        "pool_device_ms": k2["pool_device_ms"],
     }]}))
     print(ident)
     print(json.dumps({"ok": True, "device": {

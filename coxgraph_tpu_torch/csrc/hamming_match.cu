@@ -42,23 +42,24 @@
 //     d2 = min(excl, big) when Kb > 1 and excl when Kb = 1; an invalid
 //     column's best_a is 0 (every entry of the column is big).
 //
-// Tiling (wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8; both operands
-// are K-major, as descriptors are). A CTA of three warpgroups takes one
-// database row j and, when b is shared by the queries and the launch still
-// gives every SM a CTA, two queries (the detector's scoring launches: 64 x 4
-// or 128 x 2 CTAs); it unpacks up to 512 database columns at a time into
-// shared memory once for both, as 8-column x 16-byte core matrices without
+// Tiling (wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8; both operands are
+// K-major, as descriptors are). A CTA of three warpgroups takes one database
+// row j and, when b is shared by the queries and the launch still gives every
+// SM a CTA, two queries (the detector's scoring launches: 64 x 4 or 128 x 2
+// CTAs; 13% and 17% faster than one query per CTA on an H100 SXM,
+// tools/time_k2_variants.py); it unpacks up to 512 database columns at a time
+// into shared memory once for both, as 8-column x 16-byte core matrices without
 // swizzle (LBO 128 B between the two halves of a k32 step, SBO 2 KB between
-// 8-column groups). A warpgroup takes a unit of 128 query rows (two m64
-// tiles) and holds their A fragments, the whole 256-deep descriptor, in 64
-// registers per thread (the m16n8k32 fragment layout, which wgmma takes for
-// A in registers); it walks the chunk in 32-column groups: 16 wgmma issued
-// back to back and committed, a wait, then the epilogue on the 32 s32 sums
-// per thread. The three warpgroups run out of step, so one's epilogue runs
-// under another's wgmma. (Two accumulator sets per warpgroup would overlap
-// within it, but ptxas then serializes every wgmma: it cannot follow which
-// set a pending group owns.) Kb > 512 is split into equal chunks, a row's
-// top-2 kept in shared memory between chunks.
+// 8-column groups). A warpgroup takes a unit of 128 query rows (two m64 tiles)
+// and holds their A fragments, the whole 256-deep descriptor, in 64 registers
+// per thread (the m16n8k32 fragment layout, which wgmma takes for A in
+// registers); it walks the chunk in 32-column groups: 16 wgmma issued back to
+// back and committed, a wait, then the epilogue on the 32 s32 sums per thread.
+// The three warpgroups run out of step, so one's epilogue runs under another's
+// wgmma. (Two accumulator sets per warpgroup would overlap within it, but ptxas
+// then serializes every wgmma: it cannot follow which set a pending group
+// owns.) Kb > 512 is split into equal chunks, a row's top-2 kept in shared
+// memory between chunks.
 //   Column minimum: a thread first takes the minimum over its four rows;
 //   then the warp transposes its 8 x 32 partials through 1 KB of shared
 //   memory (two 16-byte stores per lane, conflict-free reads), and each lane
@@ -81,8 +82,8 @@
 // row top-2, ~1 for the column minimum, the transpose) at 64 per clock per
 // SM on 132 SMs at 1.98 GHz is ~25 us of issue, and one CTA of 12 warps per
 // SM hides its latency only in part. The unpack of B (4 integer operations
-// per 4 bytes, ~6 us at the endurance launch) is the third. Bytes are small
-// (6 MB).
+// per 4 bytes, ~3.5 us of the endurance launch on an H100 SXM) is the third.
+// Bytes are small (6 MB).
 
 #include <cuda_runtime.h>
 #include <limits.h>

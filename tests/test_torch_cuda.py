@@ -166,25 +166,35 @@ def test_hamming_topk_kernel_matches_plain(gpu, ka, kb):
         assert g_.dtype == torch.int32 and torch.equal(g_, w), name
 
 
-def _match_inputs(g, nq, cap, ka, kb, shared, device):
-    """Exact matches, a repeated row, column and slot (ties across rows,
-    columns and slots), query row 1 and database column 2 invalid, the
-    last slot and (nq > 1) the last query wholly invalid."""
-    a = _words(g, nq, ka, device=device)
-    b = _words(g, 1 if shared else nq, cap, kb, device=device)
+def edge_cases(a, av, b, bv):
+    """Edit drawn matcher inputs, in place, into K2's masking and tie
+    cases: exact matches, a repeated row, column and slot (ties across
+    rows, columns and slots), query row 1 and database column 2 invalid,
+    the last slot and (nq > 1) the last query wholly invalid. b is shared
+    when its leading size is 1. tests/test_torch_hamming_keys.py uses it
+    too; chip_smoke.py, which stands alone, keeps a copy."""
+    nq, ka = av.shape
+    kb = b.shape[2]
     n = min(ka, kb) // 2
-    b[:, :, :n] = a[0, :n] if shared else a[:, None, :n]
+    b[:, :, :n] = a[:, None, :n] if b.shape[0] == nq else a[0, :n]
     b[:, :, -1] = b[:, :, 0]
     a[:, -1] = a[:, 0]
-    if cap > 2:
+    if b.shape[1] > 2:
         b[:, 2] = b[:, 1]
-    av = torch.rand(nq, ka, generator=g, device=device) < 0.9
-    bv = torch.rand(b.shape[:-1], generator=g, device=device) < 0.9
     av[0, 1] = False
     bv[:, 0, 2 % kb] = False
     bv[:, -1] = False
     if nq > 1:
         av[-1] = False
+
+
+def _match_inputs(g, nq, cap, ka, kb, shared, device):
+    """Random words, ~90% valid, edited by edge_cases."""
+    a = _words(g, nq, ka, device=device)
+    b = _words(g, 1 if shared else nq, cap, kb, device=device)
+    av = torch.rand(nq, ka, generator=g, device=device) < 0.9
+    bv = torch.rand(b.shape[:-1], generator=g, device=device) < 0.9
+    edge_cases(a, av, b, bv)
     return a, av, b, bv
 
 
@@ -192,7 +202,10 @@ def _match_inputs(g, nq, cap, ka, kb, shared, device):
 @pytest.mark.parametrize("shared,nq,cap,ka,kb", [
     (True, 4, 24, 384, 384), (False, 4, 24, 384, 384),
     (False, 16, 1, 384, 384),            # the verify launch (b per query)
-    (True, 2, 3, 64, 1000)]              # two column chunks
+    (True, 2, 3, 64, 1000),              # two column chunks
+    # more CTAs than SMs, as on the scoring path: the odd query count
+    # leaves the last CTA one query; an endurance sub-batch of 5 queries
+    (True, 3, 140, 100, 7), (True, 5, 64, 384, 384)]
     + [(s, 3, 4 if s else 2, ka, kb) for s in (True, False)
        for ka, kb in EDGES])
 def test_match_topk_kernel_matches_plain(gpu, shared, nq, cap, ka, kb):

@@ -12,6 +12,9 @@ and the closed forms of invalid rows and columns. It is test code only:
 the package has one path per device. Every comparison is exact
 (integers)."""
 
+import os
+import runpy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import torch
 
 from coxgraph_tpu.ops import pallas_kernels as pk
 from coxgraph_tpu_torch.ops import cuda_hamming
+from test_torch_cuda import edge_cases
 
 BIG = 10_000
 INT_MAX = 2 ** 31 - 1
@@ -100,25 +104,14 @@ def _words(rng, *shape):
 
 
 def _edge_inputs(seed, nq, cap, ka, kb, batched):
-    """Exact matches, a repeated row, column and slot (ties across rows,
-    columns and slots), query row 1 and database column 2 invalid, the last
-    slot and the last query wholly invalid."""
+    """Seeded random words, ~90% valid, edited into the kernel's masking
+    and tie cases by test_torch_cuda.edge_cases."""
     rng = np.random.default_rng(seed)
     a = _words(rng, nq, ka)
     b = _words(rng, nq if batched else 1, cap, kb)
-    n = min(ka, kb) // 2
-    b[:, :, :n] = a[:, None, :n] if batched else a[0, None, :n]
-    b[:, :, -1] = b[:, :, 0]
-    a[:, -1] = a[:, 0]
-    if cap > 2:
-        b[:, 2] = b[:, 1]
     av = torch.from_numpy(rng.random((nq, ka)) < 0.9)
     bv = torch.from_numpy(rng.random(tuple(b.shape[:-1])) < 0.9)
-    av[0, 1] = False
-    bv[:, 0, 2 % kb] = False
-    bv[:, -1] = False
-    if nq > 1:
-        av[-1] = False
+    edge_cases(a, av, b, bv)
     return a, av, b, bv
 
 
@@ -208,3 +201,17 @@ def test_emulation_with_a_small_big(ka, kb):
     args = _edge_inputs(ka + kb, 3, 4, ka, kb, False)
     _assert_equal(emulate(*args, 100, 100),
                   cuda_hamming.match_topk_reference(*args, 100, 100))
+
+
+def test_variant_edits_apply_to_the_kernel_source():
+    """tools/time_k2_variants.py times K2 against edited copies of its
+    source: each of its edits must still match the source exactly once
+    and change it."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tool = runpy.run_path(os.path.join(repo, "tools", "time_k2_variants.py"),
+                          run_name="not_main")
+    with open(os.path.join(repo, "coxgraph_tpu_torch", "csrc",
+                           "hamming_match.cu")) as f:
+        src = f.read()
+    for name, (_, edits) in tool["VARIANTS"].items():
+        assert tool["_edited"](src, edits) != src, name

@@ -20,12 +20,19 @@ anything is wrong:
                  1e-3 of the live voxels differing by more than 1e-5
   4. main path — HostMapper(_mapper_config()).step_batch over the 30-frame
                  clip rendered on the card (4 submaps × 2048 blocks); one
-                 kernel launch per frame; TSDF accuracy against the analytic
-                 scene (median |err| < voxel, q95 < 2.5 voxel)
+                 kernel launch per frame, no host sync; TSDF accuracy
+                 against the analytic scene (median |err| < voxel, q95 <
+                 2.5 voxel); K1's live lanes per frame (min / median /
+                 max), counted in a separate untimed allocation run
   5. state     — the stock MapperConfig (32 submaps × 8192 blocks × 16³,
                  21.5 GB of pools): 30 frames at 1 s with the 10 s submap
                  interval roll over at t = 0, 10, 20
-  6. times     — tsdf_benchmark frames/s, and the kernel alone vs its twin
+  6. times     — tsdf_benchmark frames/s; K1 alone at the bench frame:
+                 back to back through the wrapper (CUDA events) vs its
+                 twin, and its device time from CUDA-graph replays, cold
+                 (the calls cycle over ≥ 100 MB of distinct pool rows,
+                 twice the L2, so rows come from HBM) and warm (the same
+                 rows every call)
   7. K2        — hamming_match_topk at (128, 96), (384, 200), self-match
                  and the edge shapes Ka in {100, 200} x Kb in {1, 7, 200};
                  the batched masked matcher at those edge shapes (b shared
@@ -59,6 +66,7 @@ the one before it the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -197,6 +205,45 @@ def phase_kernel_vs_twin(cfg, device, depths, colors, traj):
     return max_err, (lk, lt, args)
 
 
+def k1_device_times(spec, icfg, intr, layers, args):
+    """K1's device time from CUDA-graph replays → (cold ms, warm ms, MB of
+    distinct pool rows per cold cycle). Cold: the compared frame's block
+    coords and rows go into every submap of ``layers`` and of copies of
+    it, enough that one cycle of the captured calls over the (collection,
+    k) pairs moves at least twice the 50 MB L2 in rows, so each call reads
+    its rows from HBM; every call keeps the frame's slots, mask, images
+    and pose. Warm: the same pools every call."""
+    from coxgraph_tpu_torch.core import voxel as vx
+    from coxgraph_tpu_torch.ops import cuda_tsdf
+
+    k, slots, mask, depth, color, T = args
+    S = layers.sdf.shape[0]
+    for name in ("sdf", "weight", "color", "block_coords"):
+        t = getattr(layers, name)
+        t[1:] = t[:1]                       # the compared frame ran at k = 0
+    row_bytes = 5 * spec.voxels_per_side ** 3 * 4
+    per_col = S * int(mask.sum()) * row_bytes
+    n_col = max(2, -(-2 * 50_000_000 // per_col))
+    cols = [layers] + [vx.TsdfLayer(**{
+        f.name: getattr(layers, f.name).clone()
+        for f in dataclasses.fields(layers)}) for _ in range(n_col - 1)]
+    ks = [torch.full((), s, dtype=torch.int32, device=k.device)
+          for s in range(S)]
+    pairs = [(c, kk) for c in cols for kk in ks]
+    turn = [0]
+
+    def cold():
+        c, kk = pairs[turn[0] % len(pairs)]
+        turn[0] += 1
+        cuda_tsdf.update_blocks(spec, icfg, intr, c, kk, *args[1:])
+
+    cold_ms = _graph_ms(cold, reps=2 * len(pairs))
+    warm_ms = _graph_ms(lambda: cuda_tsdf.update_blocks(
+        spec, icfg, intr, layers, *args))
+    del cols, pairs
+    return cold_ms, warm_ms, n_col * per_col / 1e6
+
+
 def phase_main_path(cfg, device, depths, colors, traj):
     """Phase 4 → launches of the main path."""
     from coxgraph_tpu_torch.core import geometry as geo
@@ -204,6 +251,7 @@ def phase_main_path(cfg, device, depths, colors, traj):
     from coxgraph_tpu_torch.frontends import synthetic as syn
     from coxgraph_tpu_torch.mapper import submap_mapper as sm
     from coxgraph_tpu_torch.ops import cuda_tsdf
+    from coxgraph_tpu_torch.ops import tsdf as tsdf_ops
 
     n = depths.shape[0]
     hm = sm.HostMapper(cfg, device=device)
@@ -233,6 +281,22 @@ def phase_main_path(cfg, device, depths, colors, traj):
     assert launches == n, launches
     assert nb[0] > 0 and np.isfinite(checksum) and checksum > 0
     assert dirty > 0 and int(st.frame_count) == n
+
+    # K1's live lanes per frame, counted in a separate untimed run of the
+    # allocation pass on a fresh collection (a count is a host read)
+    spec, icfg = cfg.spec, cfg.integrator
+    fresh = sm.create_collection(cfg, device).layers
+    k = torch.zeros((), dtype=torch.int32, device=device)
+    T_sm_cams = geo.relative(traj[0][None], traj)   # the submap of frame 0
+    lanes = [int(tsdf_ops._alloc_pass(spec, icfg, cfg.intrinsics, fresh, k,
+                                      depths[f], T_sm_cams[f])[1].sum())
+             for f in range(n)]
+    print(f"[4] K1's live lanes per frame of the {n}: min {min(lanes)}, "
+          f"median {int(np.median(lanes))}, max {max(lanes)} (of "
+          f"{min(icfg.max_touched_blocks, spec.max_blocks)} lanes); blocks "
+          f"allocated {int(fresh.num_blocks[0])}")
+    assert int(fresh.num_blocks[0]) == nb[0], "count run left the path"
+    del fresh
 
     # accuracy against the analytic scene (tests/test_tsdf.py's gates)
     spec = cfg.spec
@@ -728,10 +792,16 @@ def main() -> None:
     k1_bytes = (n_live * (2 * 5 * v3 * 4 + 12) + args[1].shape[0] * 5
                 + 4 * 4 * intr.height * intr.width + 28)
     k1_bound, k1_by = _bound_ms(k1_bytes, 75 * n_live * v3, F32_FLOPS)
+    k1_cold_ms, k1_warm_ms, cycle_mb = k1_device_times(spec, icfg, intr, lk,
+                                                       args)
     print(f"[6] block update at the bench point ({args[1].shape[0]} lanes, "
           f"{n_live} live blocks): kernel {kernel_ms * 1e3:.1f} us/call "
-          f"{timings['kernel']}, torch twin {plain_ms * 1e3:.1f} us/call "
-          f"{timings['plain']} ms — {ident}")
+          f"{timings['kernel']} back to back, device time cold "
+          f"{k1_cold_ms * 1e3:.1f} us ({cycle_mb:.0f} MB of distinct rows "
+          f"per graph cycle), warm {k1_warm_ms * 1e3:.1f} us (the same "
+          f"rows), bound {k1_bound * 1e3:.1f} us ({k1_by}); torch twin "
+          f"{plain_ms * 1e3:.1f} us/call {timings['plain']} ms — {ident}")
+    assert cycle_mb >= 100, cycle_mb
     del lk, lt, args
     torch.cuda.empty_cache()
 
@@ -772,6 +842,8 @@ def main() -> None:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
+        "device_ms": k1_cold_ms,
+        "warm_device_ms": k1_warm_ms,
     }, {
         "name": "hamming_topk",
         "route": "cuda",

@@ -114,20 +114,31 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is not None:
         return _lib
-    lib = ctypes.CDLL(build())
+    _lib = declare(ctypes.CDLL(build()))
+    return _lib
+
+
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the entry points that ``lib``
+    holds (this library, or a build of an edited copy of one source)
+    → ``lib``."""
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cox_tsdf_update_blocks.argtypes = (
-        [P] * 10          # pools, coords, k, slots, mask, depth, color, T
-        + [I] * 5         # n_lanes, mb, vps, height, width
-        + [F] * 11        # fx fy cx cy min max tau 1/(tau/2) max_w vs bs
-        + [I, I, P])      # use_dropoff, use_distance_weight, stream
-    lib.cox_tsdf_update_blocks.restype = I
-    lib.cox_hamming_topk.argtypes = (
-        [P] * 8           # a, a_valid, b, b_valid, d1, i1, d2, best_a
-        + [I] * 7         # n_q, cap, ka, kb, b_batched, big, excl
-        + [P])            # stream
-    lib.cox_hamming_topk.restype = I
-    lib.cox_error_string.argtypes = [I]
-    lib.cox_error_string.restype = ctypes.c_char_p
-    _lib = lib
+    entry_points = {
+        "cox_tsdf_update_blocks": (
+            [P] * 10      # pools, coords, k, slots, mask, depth, color, T
+            + [I] * 6     # n_lanes, mb, vps, vec, height, width
+            + [F] * 11    # fx fy cx cy min max tau 1/(tau/2) max_w vs bs
+            + [I, I, P],  # use_dropoff, use_distance_weight, stream
+            I),
+        "cox_hamming_topk": (
+            [P] * 8       # a, a_valid, b, b_valid, d1, i1, d2, best_a
+            + [I] * 7     # n_q, cap, ka, kb, b_batched, big, excl
+            + [P],        # stream
+            I),
+        "cox_error_string": ([I], ctypes.c_char_p),
+    }
+    for name, (argtypes, restype) in entry_points.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, restype
     return lib

@@ -6,7 +6,7 @@
 // that of the plain torch twin
 // coxgraph_tpu_torch/ops/cuda_tsdf.py::update_blocks_reference, operation
 // for operation, so the two agree bit for bit:
-//   * voxel centres are block_origin + (i + 0.5) * voxel_size;
+//   * voxel centres are block_origin + (i + 0.5) * voxel_size, per voxel;
 //   * the camera pose is a 7-float device quaternion + translation, applied
 //     in the two-cross-product form v + 2 (qw (q x v) + q x (q x v)) + t;
 //   * u = x / max(z, 1e-6) * fx + cx, rounded half-to-even
@@ -19,116 +19,358 @@
 // tile-aligned working set existed only for TPU layout rules; here each
 // voxel gathers its depth and colour pixel directly.
 //
-// Grid: one CTA per touched-block lane; a masked lane returns at once. The
-// threads of a CTA stride over the block's v^3 voxels, so neighbouring
-// threads read and write neighbouring voxels of a pool row (coalesced).
-// Pool row (k * max_blocks + slot) of sdf, weight and the three planar
-// colour rows is updated in place. Live slots are unique within a launch
-// (voxel.allocate_cells guarantees it), so no atomics are needed.
+// What bounds it: bytes. Each live lane's block moves its 5 pool rows
+// (sdf, weight, r, g, b: 5 x v^3 f32) in and out once, 160 KiB at 16^3;
+// the depth and colour images (4.9 MB at 640x480) stay in the 50 MB L2.
+// At the 640x480 / 5 cm / 16^3 bench point a frame has 165-189 live lanes
+// of 512, ~27-31 MB of rows, ~9.5 us at 3.35 TB/s.
 //
-// What bounds it: at the 640x480 / 5 cm / 16^3 bench point a frame touches
-// ~350 live blocks; each moves 5 rows x 16 KiB in and out, ~56 MB per frame,
-// ~17 us of HBM time at 3.35 TB/s. The depth (1.2 MB) and colour (3.7 MB)
-// images stay in the 50 MB L2. The kernel is memory-bound, and the torch
-// allocation pass (sorts, cumsum) and launch overhead, not this kernel, are
-// expected to set the frame time.
+// Design: work items (lane, chunk of kThreads * V voxels of the lane's
+// rows), one CTA per item on a static grid of n_lanes * chunks CTAs that
+// follows from the lane count alone (the live count stays on the device).
+// A masked lane's CTAs exit before any load or store. On the float4 path
+// (V = 4, rows a multiple of 16 bytes) each thread takes 4 consecutive
+// voxels: it issues its five 16-byte row loads first, then projects the
+// 4 voxels and gathers their depth and colour pixels from L2 while the
+// loads are in flight, then updates and stores five 16-byte words. So
+// every thread keeps 80 bytes of rows in flight, and a CTA 20 KiB. Rows
+// of v^3 f32 that are not a multiple of 16 bytes (odd v) take the
+// per-voxel path of the same kernel (V = 1); the wrapper chooses it by
+// shape. Pool row k * max_blocks + slot is updated in place. Live slots
+// are unique within a launch (voxel.allocate_cells guarantees it), so no
+// atomics are needed; masked lanes, clamped to max_blocks - 1, may share
+// a live lane's row and never write.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void tsdf_update_blocks_kernel(
-    float* __restrict__ sdf_pool,            // (S*mb, v3)
-    float* __restrict__ w_pool,              // (S*mb, v3)
-    float* __restrict__ c_pool,              // (S*mb, 3*v3) planar rgb
-    const int32_t* __restrict__ block_coords,  // (S*mb, 3)
-    const int32_t* __restrict__ k_ptr,       // () active submap
-    const int32_t* __restrict__ slots,       // (K,) clamped pool slots
-    const uint8_t* __restrict__ mask,        // (K,) live lanes
-    const float* __restrict__ depth,         // (H, W)
-    const float* __restrict__ color,         // (3, H, W) or null
-    const float* __restrict__ T_cam_sm,      // (7,) q(w,x,y,z), t
-    int mb, int vps, int height, int width,
-    float fx, float fy, float cx, float cy,
-    float min_range, float max_range, float tau, float inv_half_tau,
-    float max_weight, float voxel_size, float block_size,
-    int use_dropoff, int use_distance_weight) {
-  const int lane = blockIdx.x;
-  if (!mask[lane]) return;
+constexpr int kThreads = 256;   // threads per CTA
+// float4 rows through shared memory by 1-D bulk copies (TMA) rather than
+// through registers (the per-voxel path, V = 1, always uses registers).
+// Off: on the card the register path reads the lower cold device time,
+// and tools/time_k1_variants.py times the copies against it.
+constexpr bool kBulkCopies = false;
+constexpr int kStages = 1;      // shared-memory row buffers per CTA
 
-  const int64_t row = (int64_t)(*k_ptr) * mb + slots[lane];
-  const int v3 = vps * vps * vps;
-  const int64_t hw = (int64_t)height * width;
-  float* srow = sdf_pool + row * v3;
-  float* wrow = w_pool + row * v3;
-  float* crow = c_pool + row * 3 * v3;
+struct Args {
+  float* sdf_pool;               // (S*mb, v3)
+  float* w_pool;                 // (S*mb, v3)
+  float* c_pool;                 // (S*mb, 3*v3) planar rgb
+  const int32_t* block_coords;   // (S*mb, 3)
+  const int32_t* k;              // () active submap
+  const int32_t* slots;          // (K,) clamped pool slots
+  const uint8_t* mask;           // (K,) live lanes
+  const float* depth;            // (H, W)
+  const float* color;            // (3, H, W) or null
+  const float* T_cam_sm;         // (7,) q(w,x,y,z), t
+  int n_items, chunks, mb, vps, height, width;
+  float fx, fy, cx, cy, min_range, max_range, tau, inv_half_tau;
+  float max_weight, voxel_size, block_size;
+  int use_dropoff, use_distance_weight;
+};
 
-  const float ox = (float)block_coords[row * 3 + 0] * block_size;
-  const float oy = (float)block_coords[row * 3 + 1] * block_size;
-  const float oz = (float)block_coords[row * 3 + 2] * block_size;
-  const float qw = T_cam_sm[0], qx = T_cam_sm[1], qy = T_cam_sm[2],
-              qz = T_cam_sm[3];
-  const float tx = T_cam_sm[4], ty = T_cam_sm[5], tz = T_cam_sm[6];
-
-  for (int i = threadIdx.x; i < v3; i += blockDim.x) {
-    const int ix = i / (vps * vps);
-    const int iy = (i / vps) % vps;
-    const int iz = i % vps;
-    const float px = ox + ((float)ix + 0.5f) * voxel_size;
-    const float py = oy + ((float)iy + 0.5f) * voxel_size;
-    const float pz = oz + ((float)iz + 0.5f) * voxel_size;
-
-    // quat_rotate: uv = qv x p, uuv = qv x uv
-    const float uv0 = qy * pz - qz * py;
-    const float uv1 = qz * px - qx * pz;
-    const float uv2 = qx * py - qy * px;
-    const float uuv0 = qy * uv2 - qz * uv1;
-    const float uuv1 = qz * uv0 - qx * uv2;
-    const float uuv2 = qx * uv1 - qy * uv0;
-    const float x = px + 2.0f * (qw * uv0 + uuv0) + tx;
-    const float y = py + 2.0f * (qw * uv1 + uuv1) + ty;
-    const float z = pz + 2.0f * (qw * uv2 + uuv2) + tz;
-
-    const float zs = fmaxf(z, 1e-6f);
-    const float u = x / zs * fx + cx;
-    const float v = y / zs * fy + cy;
-    const int ui = __float2int_rn(u);
-    const int vi = __float2int_rn(v);
-    const bool in_img = (z > min_range) && (ui >= 0) && (ui < width) &&
-                        (vi >= 0) && (vi < height);
-    const int64_t lin = in_img ? (int64_t)vi * width + ui : 0;
-    const float d = depth[lin];
-    const bool has_depth = in_img && (d > min_range) && (d < max_range);
-
-    const float sdf = d - z;
-    const bool observed = has_depth && (sdf > -tau);
-    float w_obs = 1.0f;
-    if (use_distance_weight) w_obs = w_obs / fmaxf(d * d, 1.0f);
-    if (use_dropoff)
-      w_obs = w_obs * fminf(fmaxf((sdf + tau) * inv_half_tau, 0.0f), 1.0f);
-    w_obs = observed ? w_obs : 0.0f;
-    const float sdf_obs = fminf(fmaxf(sdf, -tau), tau);
-
-    const float old_s = srow[i];
-    const float old_w = wrow[i];
-    const float new_w = fminf(old_w + w_obs, max_weight);
-    const float denom = fmaxf(new_w, 1e-9f);
-    srow[i] = new_w > 0.0f ? (old_w * old_s + w_obs * sdf_obs) / denom
-                           : old_s;
-    wrow[i] = new_w;
-
-    if (color != nullptr) {
-      const float near = w_obs * (fabsf(sdf) < tau ? 1.0f : 0.0f);
+// V consecutive f32: one 16-byte access when V == 4
+template <int V>
+__device__ __forceinline__ void load(const float* src, float (&x)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(src);
+    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+  } else {
 #pragma unroll
-      for (int ch = 0; ch < 3; ++ch) {
-        const float oc = crow[ch * v3 + i];
-        const float ci = color[ch * hw + lin];
-        crow[ch * v3 + i] =
-            new_w > 0.0f ? (old_w * oc + near * ci) / denom : oc;
+    for (int j = 0; j < V; ++j) x[j] = src[j];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* dst, const float (&x)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) dst[j] = x[j];
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
+// shared memory; completion counts against the mbarrier's transactions
+__device__ __forceinline__ void bulk_load(float* dst, const float* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(float* dst, const float* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+// waits until the bulk stores committed so far have read shared memory
+__device__ __forceinline__ void bulk_stores_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+template <int V, bool kBulk>
+__global__ void __launch_bounds__(kThreads)
+    tsdf_update_blocks_kernel(const Args p) {
+  static_assert(V == 4 || !kBulk, "bulk copies need 16-byte rows");
+  constexpr int kChunk = kThreads * V;     // voxels of a work item
+  // kBulk: (kStages, 5 rows, kChunk) f32; bars: one mbarrier per stage
+  extern __shared__ __align__(128) float rows[];
+  __shared__ __align__(8) uint64_t bars[kStages];
+
+  const int v3 = p.vps * p.vps * p.vps;
+  const int64_t hw = (int64_t)p.height * p.width;
+  const float qw = p.T_cam_sm[0], qx = p.T_cam_sm[1], qy = p.T_cam_sm[2],
+              qz = p.T_cam_sm[3];
+  const float tx = p.T_cam_sm[4], ty = p.T_cam_sm[5], tz = p.T_cam_sm[6];
+  const bool with_color = p.color != nullptr;
+  const int64_t plane_size = with_color ? hw : 0;
+  const float* plane[3] = {p.color, p.color + plane_size,
+                           p.color + 2 * plane_size};
+  const int n_rows = with_color ? 5 : 2;
+  const int k = *p.k;
+
+  // this CTA's live work items: blockIdx.x, + gridDim.x, ...; a masked
+  // lane's items are skipped before any load or store
+  auto next_live = [&](int item) {
+    while (item < p.n_items && !p.mask[item / p.chunks]) item += gridDim.x;
+    return item;
+  };
+  // the item's pool rows (sdf, weight, r, g, b) from its first voxel on,
+  // and its voxel count
+  auto item_rows = [&](int item, float* (&r)[5], int& c0) {
+    const int lane = item / p.chunks;
+    const int64_t row = (int64_t)k * p.mb + p.slots[lane];
+    c0 = (item - lane * p.chunks) * kChunk;
+    r[0] = p.sdf_pool + row * v3 + c0;
+    r[1] = p.w_pool + row * v3 + c0;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      r[2 + ch] = p.c_pool + (row * 3 + ch) * v3 + c0;
+    return row;
+  };
+  // kBulk: one thread brings the item's row segments into stage `st`
+  auto issue_loads = [&](int item, int st) {
+    float* r[5];
+    int c0;
+    item_rows(item, r, c0);
+    const uint32_t bytes = 4u * (uint32_t)min(kChunk, v3 - c0);
+    uint64_t* bar = &bars[st];
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(smem_u32(bar)), "r"(bytes * n_rows) : "memory");
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+      if (i < n_rows) bulk_load(rows + (st * 5 + i) * kChunk, r[i], bytes, bar);
+  };
+
+  int item = next_live(blockIdx.x);
+  if constexpr (kBulk) {
+    if (threadIdx.x == 0) {
+      for (int st = 0; st < kStages; ++st)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+                     ::"r"(smem_u32(&bars[st])) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      if (item < p.n_items) issue_loads(item, 0);
+    }
+    __syncthreads();
+  }
+  uint32_t parity = 0;    // kBulk: the phase each stage's barrier is in
+  int st = 0;
+
+  while (item < p.n_items) {
+    const int next = next_live(item + gridDim.x);
+    if (kBulk && kStages > 1 && threadIdx.x == 0 && next < p.n_items) {
+      bulk_stores_read();           // stage st ^ 1's last rows are out
+      issue_loads(next, st ^ 1);
+    }
+    float* r[5];
+    int c0;
+    const int64_t row = item_rows(item, r, c0);
+    const int t0 = threadIdx.x * V;          // this thread's voxels
+    const bool active = c0 + t0 < v3;        // V == 4: all V are in
+
+    // 1. register path: the row loads first, in flight during the gathers
+    float s[V], w[V], c[3][V];
+    if (!kBulk && active) {
+      load<V>(r[0] + t0, s);
+      load<V>(r[1] + t0, w);
+      if (with_color) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) load<V>(r[2 + ch] + t0, c[ch]);
       }
     }
+
+    // 2. project the V voxels and gather their pixels
+    const float ox = (float)p.block_coords[row * 3 + 0] * p.block_size;
+    const float oy = (float)p.block_coords[row * 3 + 1] * p.block_size;
+    const float oz = (float)p.block_coords[row * 3 + 2] * p.block_size;
+    // the first voxel's (ix, iy, iz), divided out once; the next ones
+    // step along iz (rows are C-order: i = (ix * v + iy) * v + iz)
+    const int i = active ? c0 + t0 : 0;
+    const int q = i / p.vps;
+    int ix = q / p.vps, iy = q - ix * p.vps, iz = i - q * p.vps;
+    int lin[V];      // pixel index, -1 off the image
+    float d[V], z[V], ci[3][V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if (j > 0 && ++iz == p.vps) {
+        iz = 0;
+        if (++iy == p.vps) {
+          iy = 0;
+          ++ix;
+        }
+      }
+      const float px = ox + ((float)ix + 0.5f) * p.voxel_size;
+      const float py = oy + ((float)iy + 0.5f) * p.voxel_size;
+      const float pz = oz + ((float)iz + 0.5f) * p.voxel_size;
+
+      // quat_rotate: uv = qv x p, uuv = qv x uv
+      const float uv0 = qy * pz - qz * py;
+      const float uv1 = qz * px - qx * pz;
+      const float uv2 = qx * py - qy * px;
+      const float uuv0 = qy * uv2 - qz * uv1;
+      const float uuv1 = qz * uv0 - qx * uv2;
+      const float uuv2 = qx * uv1 - qy * uv0;
+      const float x = px + 2.0f * (qw * uv0 + uuv0) + tx;
+      const float y = py + 2.0f * (qw * uv1 + uuv1) + ty;
+      z[j] = pz + 2.0f * (qw * uv2 + uuv2) + tz;
+
+      const float zs = fmaxf(z[j], 1e-6f);
+      const float u = x / zs * p.fx + p.cx;
+      const float v = y / zs * p.fy + p.cy;
+      const int ui = __float2int_rn(u);
+      const int vi = __float2int_rn(v);
+      const bool in_img = (z[j] > p.min_range) && (ui >= 0) &&
+                          (ui < p.width) && (vi >= 0) && (vi < p.height);
+      lin[j] = in_img ? vi * p.width + ui : -1;
+      d[j] = p.depth[in_img ? lin[j] : 0];
+      if (with_color) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          ci[ch][j] = plane[ch][in_img ? lin[j] : 0];
+      }
+    }
+
+    // 3. update (bulk path: in shared memory once the rows are in)
+    float* sm = rows + st * 5 * kChunk + t0;
+    if constexpr (kBulk) {
+      mbar_wait(&bars[st], (parity >> st) & 1u);
+      parity ^= 1u << st;
+      load<V>(sm, s);
+      load<V>(sm + kChunk, w);
+      if (with_color) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          load<V>(sm + (2 + ch) * kChunk, c[ch]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const bool has_depth =
+          lin[j] >= 0 && (d[j] > p.min_range) && (d[j] < p.max_range);
+      const float sdf = d[j] - z[j];
+      const bool observed = has_depth && (sdf > -p.tau);
+      float w_obs = 1.0f;
+      if (p.use_distance_weight) w_obs = w_obs / fmaxf(d[j] * d[j], 1.0f);
+      if (p.use_dropoff)
+        w_obs = w_obs *
+                fminf(fmaxf((sdf + p.tau) * p.inv_half_tau, 0.0f), 1.0f);
+      w_obs = observed ? w_obs : 0.0f;
+      const float sdf_obs = fminf(fmaxf(sdf, -p.tau), p.tau);
+
+      const float old_w = w[j];
+      const float new_w = fminf(old_w + w_obs, p.max_weight);
+      const float denom = fmaxf(new_w, 1e-9f);
+      s[j] = new_w > 0.0f ? (old_w * s[j] + w_obs * sdf_obs) / denom : s[j];
+      w[j] = new_w;
+      if (with_color) {
+        const float near = w_obs * (fabsf(sdf) < p.tau ? 1.0f : 0.0f);
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch)
+          c[ch][j] = new_w > 0.0f
+                         ? (old_w * c[ch][j] + near * ci[ch][j]) / denom
+                         : c[ch][j];
+      }
+    }
+
+    // 4. store: the register path directly; the bulk path writes shared
+    // memory, makes it visible to the copy engine and sends the segments
+    // back with bulk stores
+    float* out[5] = {r[0] + t0, r[1] + t0, r[2] + t0, r[3] + t0,
+                     r[4] + t0};
+    if constexpr (kBulk) {
+#pragma unroll
+      for (int i = 0; i < 5; ++i) out[i] = sm + i * kChunk;
+    }
+    if (active) {
+      store<V>(out[0], s);
+      store<V>(out[1], w);
+      if (with_color) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) store<V>(out[2 + ch], c[ch]);
+      }
+    }
+    if constexpr (kBulk) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        const uint32_t bytes = 4u * (uint32_t)min(kChunk, v3 - c0);
+#pragma unroll
+        for (int i = 0; i < 5; ++i)
+          if (i < n_rows) bulk_store(r[i], rows + (st * 5 + i) * kChunk, bytes);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+        if (kStages == 1 && next < p.n_items) {
+          bulk_stores_read();       // the one stage's rows are out
+          issue_loads(next, 0);
+        }
+      }
+      st = (st + 1) % kStages;
+    }
+    item = next;
   }
+  if (kBulk && threadIdx.x == 0) bulk_stores_read();
+}
+
+template <int V>
+cudaError_t launch(Args p, cudaStream_t stream) {
+  constexpr bool kBulk = kBulkCopies && V == 4;
+  const int v3 = p.vps * p.vps * p.vps;
+  p.chunks = (v3 + kThreads * V - 1) / (kThreads * V);
+  p.n_items *= p.chunks;
+  const size_t smem = kBulk ? sizeof(float) * kStages * 5 * kThreads * V
+                            : 0;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tsdf_update_blocks_kernel<V, kBulk>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  tsdf_update_blocks_kernel<V, kBulk>
+      <<<p.n_items, kThreads, smem, stream>>>(p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -136,26 +378,29 @@ __global__ void tsdf_update_blocks_kernel(
 extern "C" {
 
 // Launches the block update on `stream` and returns cudaGetLastError()
-// (0 on success). Allocates nothing and does not synchronise.
+// (0 on success). Allocates nothing and does not synchronise. `vec` is the
+// voxels per thread: 4 (the pools' rows are a multiple of 16 bytes and
+// 16-byte aligned) or 1; anything else is cudaErrorInvalidValue.
 int cox_tsdf_update_blocks(
     float* sdf_pool, float* w_pool, float* c_pool,
     const int32_t* block_coords, const int32_t* k, const int32_t* slots,
     const uint8_t* mask, const float* depth, const float* color,
-    const float* T_cam_sm, int n_lanes, int mb, int vps, int height,
-    int width, float fx, float fy, float cx, float cy, float min_range,
-    float max_range, float tau, float inv_half_tau, float max_weight,
-    float voxel_size, float block_size, int use_dropoff,
+    const float* T_cam_sm, int n_lanes, int mb, int vps, int vec,
+    int height, int width, float fx, float fy, float cx, float cy,
+    float min_range, float max_range, float tau, float inv_half_tau,
+    float max_weight, float voxel_size, float block_size, int use_dropoff,
     int use_distance_weight, void* stream) {
   if (n_lanes <= 0) return (int)cudaSuccess;
   const int v3 = vps * vps * vps;
-  int threads = v3 < 256 ? ((v3 + 31) / 32) * 32 : 256;
-  tsdf_update_blocks_kernel<<<n_lanes, threads, 0,
-                              (cudaStream_t)stream>>>(
-      sdf_pool, w_pool, c_pool, block_coords, k, slots, mask, depth, color,
-      T_cam_sm, mb, vps, height, width, fx, fy, cx, cy, min_range,
-      max_range, tau, inv_half_tau, max_weight, voxel_size, block_size,
-      use_dropoff, use_distance_weight);
-  return (int)cudaGetLastError();
+  if (vps <= 0 || !(vec == 1 || (vec == 4 && v3 % 4 == 0)))
+    return (int)cudaErrorInvalidValue;
+  const Args p{sdf_pool, w_pool, c_pool, block_coords, k, slots, mask,
+               depth, color, T_cam_sm, n_lanes, 0, mb, vps, height, width,
+               fx, fy, cx, cy, min_range, max_range, tau, inv_half_tau,
+               max_weight, voxel_size, block_size, use_dropoff,
+               use_distance_weight};
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(vec == 4 ? launch<4>(p, s) : launch<1>(p, s));
 }
 
 const char* cox_error_string(int err) {

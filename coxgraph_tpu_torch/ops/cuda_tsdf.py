@@ -43,6 +43,12 @@ Tensor = torch.Tensor
 LAUNCHES = 0
 
 
+def voxels_per_thread(v3: int) -> int:
+    """The kernel's path, by shape alone: 4 voxels per thread in 16-byte
+    accesses when a row of v³ f32 is a multiple of 16 bytes, else 1."""
+    return 4 if v3 % 4 == 0 else 1
+
+
 def update_blocks_reference(spec: vx.VoxelGridSpec, cfg,
                             intr: PinholeIntrinsics, layers: vx.TsdfLayer,
                             k: Tensor, slots: Tensor, slot_mask: Tensor,
@@ -134,8 +140,11 @@ def update_blocks(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
     and slot_mask (K,) bool from the allocation pass; depth (H, W) f32;
     color planar (3, H, W) f32 in [0, 1] or None; T_cam_sm (7,) f32.
 
-    CUDA tensors launch the kernel (one launch, K CTAs) or raise; CPU
-    tensors run ``update_blocks_reference``."""
+    CUDA tensors launch the kernel (one launch) or raise; CPU tensors run
+    ``update_blocks_reference``. The kernel's path follows from the shape
+    alone: rows of v³ f32 that are a multiple of 16 bytes (even v) take
+    4 voxels per thread in 16-byte accesses, and the pools must then be
+    16-byte aligned; other rows (odd v) take 1 voxel per thread."""
     global LAUNCHES
     device = layers.sdf.device
     if device.type == "cpu":
@@ -152,9 +161,12 @@ def update_blocks(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
     K = slots.shape[0]
     H, W = intr.height, intr.width
     f32 = torch.float32
-    _check("layers.sdf", layers.sdf, f32, (S, mb, v3), device)
-    _check("layers.weight", layers.weight, f32, (S, mb, v3), device)
-    _check("layers.color", layers.color, f32, (S, mb, 3 * v3), device)
+    align = 4 * voxels_per_thread(v3)    # bytes the kernel accesses at once
+    for name in ("sdf", "weight"):
+        _check(f"layers.{name}", getattr(layers, name), f32, (S, mb, v3),
+               device, align=align)
+    _check("layers.color", layers.color, f32, (S, mb, 3 * v3), device,
+           align=align)
     _check("layers.block_coords", layers.block_coords, torch.int32,
            (S, mb, 3), device)
     _check("k", k, torch.int32, (), device)
@@ -167,19 +179,32 @@ def update_blocks(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
 
     from .. import _build
 
-    lib = _build.load()
-    stream = torch.cuda.current_stream(device).cuda_stream
+    launch(_build.load(), spec, cfg, intr, layers, k, slots, slot_mask,
+           depth, color, T_cam_sm)
+    LAUNCHES += 1
+
+
+def launch(lib, spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
+           layers: vx.TsdfLayer, k: Tensor, slots: Tensor,
+           slot_mask: Tensor, depth: Tensor, color: Optional[Tensor],
+           T_cam_sm: Tensor) -> None:
+    """Launch ``lib``'s block update on the current stream, operands
+    unchecked (``update_blocks`` checks them; tools/time_k1_variants.py
+    launches builds of edited copies of the kernel through this)."""
+    v = spec.voxels_per_side
     tau = spec.truncation
     err = lib.cox_tsdf_update_blocks(
         layers.sdf.data_ptr(), layers.weight.data_ptr(),
         layers.color.data_ptr(), layers.block_coords.data_ptr(),
         k.data_ptr(), slots.data_ptr(), slot_mask.data_ptr(),
         depth.data_ptr(), None if color is None else color.data_ptr(),
-        T_cam_sm.data_ptr(), K, mb, v, H, W,
-        intr.fx, intr.fy, intr.cx, intr.cy, cfg.min_range, cfg.max_range,
-        tau, f32_reciprocal(0.5 * tau), cfg.max_weight, spec.voxel_size, spec.block_size,
-        int(cfg.use_dropoff), int(cfg.use_distance_weight), stream)
+        T_cam_sm.data_ptr(), slots.shape[0], spec.max_blocks, v,
+        voxels_per_thread(v ** 3),
+        intr.height, intr.width, intr.fx, intr.fy, intr.cx, intr.cy,
+        cfg.min_range, cfg.max_range, tau, f32_reciprocal(0.5 * tau),
+        cfg.max_weight, spec.voxel_size, spec.block_size,
+        int(cfg.use_dropoff), int(cfg.use_distance_weight),
+        torch.cuda.current_stream(layers.sdf.device).cuda_stream)
     if err != 0:
         raise RuntimeError("tsdf_update_blocks launch failed: "
                            + lib.cox_error_string(err).decode())
-    LAUNCHES += 1

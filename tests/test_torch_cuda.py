@@ -55,12 +55,18 @@ def _stacked(spec, device):
                            for f in dataclasses.fields(layer)})
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("vps", [8, 16])
-def test_kernel_matches_twin(gpu, vps):
-    spec = vx.VoxelGridSpec(voxel_size=0.1 if vps == 8 else 0.05,
+def _spec(vps):
+    """10 cm voxels (5 cm at 16³): 4³, 8³ and 16³ rows take the kernel's
+    4-voxels-per-thread path, 5³ rows (500 bytes) its per-voxel path."""
+    return vx.VoxelGridSpec(voxel_size=0.05 if vps == 16 else 0.1,
                             voxels_per_side=vps, grid_dim=16,
                             max_blocks=256, truncation=0.3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vps", [4, 5, 8, 16])
+def test_kernel_matches_twin(gpu, vps):
+    spec = _spec(vps)
     depths, colors, traj = _frames(gpu)
     planar = colors.permute(0, 3, 1, 2).contiguous()
     k = torch.zeros((), dtype=torch.int32, device=gpu)
@@ -78,10 +84,101 @@ def test_kernel_matches_twin(gpu, vps):
         assert cuda_tsdf.LAUNCHES == before + 1
         cuda_tsdf.update_blocks_reference(spec, CFG, INTR, lt, *args)
         torch.cuda.synchronize()
-        assert int((lt.weight > 0).sum()) > 1000
+        assert int((lt.weight > 0).sum()) > min(1000, 4 * vps ** 3)
         for f_ in dataclasses.fields(lk):
             assert torch.equal(getattr(lk, f_.name),
                                getattr(lt, f_.name)), f_.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vps", [5, 16])
+def test_kernel_edge_lanes_match_twin(gpu, vps):
+    """Hand-made lanes on random pools: K = 37 (a multiple of no chunk),
+    holes in the mask (first and last lane too), masked lanes clamped onto
+    slot mb - 1 that another lane holds live, a masked lane on a row no
+    lane holds, submap k = 2 of S = 3, no colour image, drop-off and
+    distance weight off. Kernel ≡ twin on every pool, live rows changed,
+    every other row of every submap bit for bit as it was."""
+    spec = _spec(vps)
+    cfg = dataclasses.replace(CFG, use_dropoff=False,
+                              use_distance_weight=False)
+    mb, K, kk = spec.max_blocks, 37, 2
+    depths, _, traj = _frames(gpu, 1)
+    one = vx.create_tsdf_layer(spec, gpu)
+    base = vx.TsdfLayer(**{f.name: torch.stack([getattr(one, f.name)] * 3)
+                           for f in dataclasses.fields(one)})
+    k = torch.full((), kk, dtype=torch.int32, device=gpu)
+    tsdf._alloc_pass(spec, cfg, INTR, base, k, depths[0], traj[0])
+    n_alloc = int(base.num_blocks[kk])
+    assert n_alloc > 0
+    g = torch.Generator(device=gpu).manual_seed(vps)
+    base.sdf.uniform_(-0.3, 0.3, generator=g)
+    base.weight.uniform_(0.0, 3.0, generator=g)
+    base.weight.mul_(torch.rand(base.weight.shape, generator=g,
+                                device=gpu) < 0.7)
+    base.color.uniform_(0.0, 1.0, generator=g)
+
+    rng = np.random.default_rng(vps)
+    holes = [0, 5, 6, 20, K - 1]
+    live = [i for i in range(K) if i not in holes]
+    free = rng.permutation(mb - 1)
+    slots = np.full(K, mb - 1)
+    slots[live] = free[:len(live)]
+    slots[live[3]] = mb - 1              # live on the masked lanes' row
+    slots[20] = free[len(live)]          # masked, on a row no lane holds
+    mask = np.zeros(K, bool)
+    mask[live] = True
+    live_slots = torch.from_numpy(slots[live]).to(gpu).long()
+    # every live block is one the frame sees
+    base.block_coords[kk, live_slots] = base.block_coords[kk, torch.from_numpy(
+        rng.integers(0, n_alloc, len(live))).to(gpu)]
+    args = (k, torch.from_numpy(slots.astype(np.int32)).to(gpu),
+            torch.from_numpy(mask).to(gpu), depths[0], None,
+            geo.inverse(traj[0]).contiguous())
+    lk, lt = (vx.TsdfLayer(**{f.name: getattr(base, f.name).clone()
+                             for f in dataclasses.fields(base)})
+              for _ in range(2))
+    before = cuda_tsdf.LAUNCHES
+    cuda_tsdf.update_blocks(spec, cfg, INTR, lk, *args)
+    assert cuda_tsdf.LAUNCHES == before + 1
+    cuda_tsdf.update_blocks_reference(spec, cfg, INTR, lt, *args)
+    torch.cuda.synchronize()
+    for f_ in dataclasses.fields(lk):
+        assert torch.equal(getattr(lk, f_.name),
+                           getattr(lt, f_.name)), f_.name
+    touched = torch.zeros((3, mb), dtype=torch.bool, device=gpu)
+    touched[kk, live_slots] = True
+    for name in ("sdf", "weight"):
+        assert not torch.equal(getattr(lk, name)[touched],
+                               getattr(base, name)[touched]), name
+    for name in ("sdf", "weight", "color"):
+        assert torch.equal(getattr(lk, name)[~touched],
+                           getattr(base, name)[~touched]), name
+    assert torch.equal(lk.color, base.color)
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_misaligned_pools(gpu):
+    """Rows of 16-byte multiples go to the kernel's 16-byte path, so a pool
+    that starts off a 16-byte boundary is refused; 5³ rows are not."""
+    depths, colors, traj = _frames(gpu, 1)
+    planar = colors[0].permute(2, 0, 1).contiguous()
+    for vps, refused in ((8, True), (5, False)):
+        spec = _spec(vps)
+        lay = _stacked(spec, gpu)
+        off = torch.zeros(lay.sdf.numel() + 1, device=gpu)[1:]
+        lay = dataclasses.replace(lay, sdf=off.view(lay.sdf.shape))
+        args = (torch.zeros((), dtype=torch.int32, device=gpu),
+                torch.zeros(64, dtype=torch.int32, device=gpu),
+                torch.zeros(64, dtype=torch.bool, device=gpu), depths[0],
+                planar, geo.inverse(traj[0]).contiguous())
+        before = cuda_tsdf.LAUNCHES
+        if refused:
+            with pytest.raises(ValueError):
+                cuda_tsdf.update_blocks(spec, CFG, INTR, lay, *args)
+        else:
+            cuda_tsdf.update_blocks(spec, CFG, INTR, lay, *args)
+        assert cuda_tsdf.LAUNCHES == before + (not refused)
 
 
 @pytest.mark.cuda

@@ -15,6 +15,8 @@ Tolerances:
   import it)."""
 
 import dataclasses
+import os
+import runpy
 
 import jax
 import jax.numpy as jnp
@@ -102,17 +104,26 @@ def test_color_layout():
         tsdf.color_layout(torch.zeros(60, 3, 80), 60, 80)
 
 
-@pytest.mark.parametrize("with_color", [True, False],
-                         ids=["color", "depth_only"])
-def test_integrate_frame_matches_jax(with_color):
+@pytest.mark.parametrize("vps,with_color", [
+    (8, True), (8, False),
+    # the GPU tests' other block sizes (tests/test_torch_cuda.py): 4³ and
+    # 16³ rows take the kernel's 4-voxels-per-thread path, 5³ its
+    # per-voxel path; 10 cm voxels, 5 cm at 16³
+    (4, True), (5, True), (16, True)],
+    ids=["color", "depth_only", "v4", "v5", "v16"])
+def test_integrate_frame_matches_jax(vps, with_color):
     depths, colors, traj = _frames(1)
     c = colors[0] if with_color else None
-    jl = jtsdf.integrate_frame(JSPEC, JCFG, JINTR, jvx.create_tsdf_layer(JSPEC),
+    jspec = dataclasses.replace(JSPEC, voxels_per_side=vps,
+                                voxel_size=0.05 if vps == 16 else 0.1)
+    spec = interop.config_from(jspec)
+    jl = jtsdf.integrate_frame(jspec, JCFG, JINTR,
+                               jvx.create_tsdf_layer(jspec),
                                jnp.asarray(depths[0]),
                                None if c is None else jnp.asarray(c),
                                jnp.asarray(traj[0]))
-    pl = vx.create_tsdf_layer(SPEC, CPU)
-    out = tsdf.integrate_frame(SPEC, CFG, INTR, pl, _t(depths[0]),
+    pl = vx.create_tsdf_layer(spec, CPU)
+    out = tsdf.integrate_frame(spec, CFG, INTR, pl, _t(depths[0]),
                                None if c is None else _t(c), _t(traj[0]))
     assert out is pl                        # updated in place
     assert int(pl.num_blocks) > 10
@@ -189,3 +200,18 @@ def test_update_blocks_refuses_other_devices():
             torch.zeros(64, dtype=torch.bool), _t(depths[0]),
             _t(colors[0]).permute(2, 0, 1).contiguous(), _t(traj[0]))
     assert cuda_tsdf.LAUNCHES == before
+
+
+def test_variant_edits_apply_to_the_kernel_source():
+    """tools/time_k1_variants.py times K1 against edited copies of its
+    source: each of its edits must still match the source exactly once
+    and change it."""
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    tool = runpy.run_path(os.path.join(repo, "tools", "time_k1_variants.py"),
+                          run_name="not_main")
+    with open(os.path.join(repo, "coxgraph_tpu_torch", "csrc",
+                           "tsdf_update.cu")) as f:
+        src = f.read()
+    assert tool["VARIANTS"]
+    for name, (_, edits) in tool["VARIANTS"].items():
+        assert tool["_edited"](src, edits) != src, name

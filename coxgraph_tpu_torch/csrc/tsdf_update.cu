@@ -20,26 +20,37 @@
 // voxel gathers its depth and colour pixel directly.
 //
 // What bounds it: bytes. Each live lane's block moves its 5 pool rows
-// (sdf, weight, r, g, b: 5 x v^3 f32) in and out once, 160 KiB at 16^3;
-// the depth and colour images (4.9 MB at 640x480) stay in the 50 MB L2.
-// At the 640x480 / 5 cm / 16^3 bench point a frame has 165-189 live lanes
-// of 512, ~27-31 MB of rows, ~9.5 us at 3.35 TB/s.
+// (sdf, weight, r, g, b: 5 x v^3 f32) in and out once, 160 KiB at 16^3,
+// and the depth and colour images (4.9 MB at 640x480) are read once. At
+// the 640x480 / 5 cm / 16^3 bench point a frame has 59-187 live lanes of
+// 512 (median 151, chip_smoke.py phase 4); at the compared frame's 165,
+// 27 MB of rows and 9.5 us at 3.35 TB/s.
 //
-// Design: work items (lane, chunk of kThreads * V voxels of the lane's
-// rows), one CTA per item on a static grid of n_lanes * chunks CTAs that
-// follows from the lane count alone (the live count stays on the device).
-// A masked lane's CTAs exit before any load or store. On the float4 path
-// (V = 4, rows a multiple of 16 bytes) each thread takes 4 consecutive
-// voxels: it issues its five 16-byte row loads first, then projects the
-// 4 voxels and gathers their depth and colour pixels from L2 while the
-// loads are in flight, then updates and stores five 16-byte words. So
-// every thread keeps 80 bytes of rows in flight, and a CTA 20 KiB. Rows
-// of v^3 f32 that are not a multiple of 16 bytes (odd v) take the
-// per-voxel path of the same kernel (V = 1); the wrapper chooses it by
-// shape. Pool row k * max_blocks + slot is updated in place. Live slots
-// are unique within a launch (voxel.allocate_cells guarantees it), so no
-// atomics are needed; masked lanes, clamped to max_blocks - 1, may share
-// a live lane's row and never write.
+// Design: work items (lane, chunk of kThreads * V voxels of its rows). A
+// persistent grid of as many CTAs as the card holds at once walks them
+// (item = blockIdx.x, + gridDim.x, ...); the grid follows from the lane
+// count and the card, never from the live count, which stays on the
+// device. A masked lane's items are skipped before any load or store.
+// Each thread takes V consecutive voxels of a row (V = 2 where a row is a
+// multiple of 8 bytes, even v; else 1, chosen by shape in the wrapper):
+// it issues its five row loads first, then projects its voxels and
+// gathers their depth and colour pixels from L2 while the loads are in
+// flight, then updates and stores. Pool row k * max_blocks + slot is
+// updated in place. Live slots are unique within a launch
+// (voxel.allocate_cells guarantees it), so no atomics are needed; masked
+// lanes, clamped to max_blocks - 1, may share a live lane's row and never
+// write.
+//
+// On an H100 (PERF.md, tools/time_k1_variants.py) this design reads ~18
+// us per launch with the rows cold in HBM and ~15.5 us with them in L2;
+// 4 voxels per thread in 16-byte accesses read ~20 and ~16, one CTA per
+// item on a static grid ~1 us more, and rows brought through shared
+// memory by 1-D bulk copies (TMA) ~1.5 us more than registers: the
+// register loads already keep 20 KiB of rows in flight per CTA, and the
+// copies add a CTA-wide wait before the bulk stores. Even with the rows
+// in L2 the kernel stays near 15 us: its time goes to the divergent pixel
+// gathers (~4 us) and to the latency of each item's chain mask -> slot ->
+// rows and block origin -> projection -> gathers -> update.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,12 +58,6 @@
 namespace {
 
 constexpr int kThreads = 256;   // threads per CTA
-// float4 rows through shared memory by 1-D bulk copies (TMA) rather than
-// through registers (the per-voxel path, V = 1, always uses registers).
-// Off: on the card the register path reads the lower cold device time,
-// and tools/time_k1_variants.py times the copies against it.
-constexpr bool kBulkCopies = false;
-constexpr int kStages = 1;      // shared-memory row buffers per CTA
 
 struct Args {
   float* sdf_pool;               // (S*mb, v3)
@@ -71,15 +76,18 @@ struct Args {
   int use_dropoff, use_distance_weight;
 };
 
-// V consecutive f32: one 16-byte access when V == 4
+// V consecutive f32 in one access of 4 * V bytes
 template <int V>
 __device__ __forceinline__ void load(const float* src, float (&x)[V]) {
+  static_assert(V == 1 || V == 2 || V == 4, "1, 2 or 4 voxels a thread");
   if constexpr (V == 4) {
     const float4 t = *reinterpret_cast<const float4*>(src);
     x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(src);
+    x[0] = t.x; x[1] = t.y;
   } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) x[j] = src[j];
+    x[0] = *src;
   }
 }
 
@@ -87,60 +95,17 @@ template <int V>
 __device__ __forceinline__ void store(float* dst, const float (&x)[V]) {
   if constexpr (V == 4) {
     *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);
   } else {
-#pragma unroll
-    for (int j = 0; j < V; ++j) dst[j] = x[j];
+    *dst = x[0];
   }
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// `bytes` (a multiple of 16, both ends 16-byte aligned) from global to
-// shared memory; completion counts against the mbarrier's transactions
-__device__ __forceinline__ void bulk_load(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_store(float* dst, const float* src,
-                                           uint32_t bytes) {
-  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
-               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes)
-               : "memory");
-}
-
-// waits until the bulk stores committed so far have read shared memory
-__device__ __forceinline__ void bulk_stores_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-}
-
-template <int V, bool kBulk>
+template <int V>
 __global__ void __launch_bounds__(kThreads)
     tsdf_update_blocks_kernel(const Args p) {
-  static_assert(V == 4 || !kBulk, "bulk copies need 16-byte rows");
   constexpr int kChunk = kThreads * V;     // voxels of a work item
-  // kBulk: (kStages, 5 rows, kChunk) f32; bars: one mbarrier per stage
-  extern __shared__ __align__(128) float rows[];
-  __shared__ __align__(8) uint64_t bars[kStages];
-
   const int v3 = p.vps * p.vps * p.vps;
   const int64_t hw = (int64_t)p.height * p.width;
   const float qw = p.T_cam_sm[0], qx = p.T_cam_sm[1], qy = p.T_cam_sm[2],
@@ -150,86 +115,36 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t plane_size = with_color ? hw : 0;
   const float* plane[3] = {p.color, p.color + plane_size,
                            p.color + 2 * plane_size};
-  const int n_rows = with_color ? 5 : 2;
   const int k = *p.k;
 
-  // this CTA's live work items: blockIdx.x, + gridDim.x, ...; a masked
-  // lane's items are skipped before any load or store
-  auto next_live = [&](int item) {
-    while (item < p.n_items && !p.mask[item / p.chunks]) item += gridDim.x;
-    return item;
-  };
-  // the item's pool rows (sdf, weight, r, g, b) from its first voxel on,
-  // and its voxel count
-  auto item_rows = [&](int item, float* (&r)[5], int& c0) {
+  for (int item = blockIdx.x; item < p.n_items; item += gridDim.x) {
     const int lane = item / p.chunks;
+    if (!p.mask[lane]) continue;
+    const int c0 = (item - lane * p.chunks) * kChunk;
+    const int i = c0 + threadIdx.x * V;      // this thread's first voxel
+    if (i >= v3) continue;                   // v3 % V == 0: all V are in
+
     const int64_t row = (int64_t)k * p.mb + p.slots[lane];
-    c0 = (item - lane * p.chunks) * kChunk;
-    r[0] = p.sdf_pool + row * v3 + c0;
-    r[1] = p.w_pool + row * v3 + c0;
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch)
-      r[2 + ch] = p.c_pool + (row * 3 + ch) * v3 + c0;
-    return row;
-  };
-  // kBulk: one thread brings the item's row segments into stage `st`
-  auto issue_loads = [&](int item, int st) {
-    float* r[5];
-    int c0;
-    item_rows(item, r, c0);
-    const uint32_t bytes = 4u * (uint32_t)min(kChunk, v3 - c0);
-    uint64_t* bar = &bars[st];
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(smem_u32(bar)), "r"(bytes * n_rows) : "memory");
-#pragma unroll
-    for (int i = 0; i < 5; ++i)
-      if (i < n_rows) bulk_load(rows + (st * 5 + i) * kChunk, r[i], bytes, bar);
-  };
+    float* rows[5] = {p.sdf_pool + row * v3 + i, p.w_pool + row * v3 + i,
+                      p.c_pool + row * 3 * v3 + i,
+                      p.c_pool + (row * 3 + 1) * v3 + i,
+                      p.c_pool + (row * 3 + 2) * v3 + i};
 
-  int item = next_live(blockIdx.x);
-  if constexpr (kBulk) {
-    if (threadIdx.x == 0) {
-      for (int st = 0; st < kStages; ++st)
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                     ::"r"(smem_u32(&bars[st])) : "memory");
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      if (item < p.n_items) issue_loads(item, 0);
-    }
-    __syncthreads();
-  }
-  uint32_t parity = 0;    // kBulk: the phase each stage's barrier is in
-  int st = 0;
-
-  while (item < p.n_items) {
-    const int next = next_live(item + gridDim.x);
-    if (kBulk && kStages > 1 && threadIdx.x == 0 && next < p.n_items) {
-      bulk_stores_read();           // stage st ^ 1's last rows are out
-      issue_loads(next, st ^ 1);
-    }
-    float* r[5];
-    int c0;
-    const int64_t row = item_rows(item, r, c0);
-    const int t0 = threadIdx.x * V;          // this thread's voxels
-    const bool active = c0 + t0 < v3;        // V == 4: all V are in
-
-    // 1. register path: the row loads first, in flight during the gathers
+    // 1. the row loads first, in flight during the gathers
     float s[V], w[V], c[3][V];
-    if (!kBulk && active) {
-      load<V>(r[0] + t0, s);
-      load<V>(r[1] + t0, w);
-      if (with_color) {
+    load<V>(rows[0], s);
+    load<V>(rows[1], w);
+    if (with_color) {
 #pragma unroll
-        for (int ch = 0; ch < 3; ++ch) load<V>(r[2 + ch] + t0, c[ch]);
-      }
+      for (int ch = 0; ch < 3; ++ch) load<V>(rows[2 + ch], c[ch]);
     }
 
-    // 2. project the V voxels and gather their pixels
+    // 2. project the V voxels and gather their pixels; the first voxel's
+    // (ix, iy, iz) is divided out once, the next ones step along iz
+    // (rows are C-order: i = (ix * v + iy) * v + iz)
     const float ox = (float)p.block_coords[row * 3 + 0] * p.block_size;
     const float oy = (float)p.block_coords[row * 3 + 1] * p.block_size;
     const float oz = (float)p.block_coords[row * 3 + 2] * p.block_size;
-    // the first voxel's (ix, iy, iz), divided out once; the next ones
-    // step along iz (rows are C-order: i = (ix * v + iy) * v + iz)
-    const int i = active ? c0 + t0 : 0;
     const int q = i / p.vps;
     int ix = q / p.vps, iy = q - ix * p.vps, iz = i - q * p.vps;
     int lin[V];      // pixel index, -1 off the image
@@ -274,19 +189,7 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
 
-    // 3. update (bulk path: in shared memory once the rows are in)
-    float* sm = rows + st * 5 * kChunk + t0;
-    if constexpr (kBulk) {
-      mbar_wait(&bars[st], (parity >> st) & 1u);
-      parity ^= 1u << st;
-      load<V>(sm, s);
-      load<V>(sm + kChunk, w);
-      if (with_color) {
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch)
-          load<V>(sm + (2 + ch) * kChunk, c[ch]);
-      }
-    }
+    // 3. update in registers, then store
 #pragma unroll
     for (int j = 0; j < V; ++j) {
       const bool has_depth =
@@ -315,61 +218,38 @@ __global__ void __launch_bounds__(kThreads)
                          : c[ch][j];
       }
     }
-
-    // 4. store: the register path directly; the bulk path writes shared
-    // memory, makes it visible to the copy engine and sends the segments
-    // back with bulk stores
-    float* out[5] = {r[0] + t0, r[1] + t0, r[2] + t0, r[3] + t0,
-                     r[4] + t0};
-    if constexpr (kBulk) {
+    store<V>(rows[0], s);
+    store<V>(rows[1], w);
+    if (with_color) {
 #pragma unroll
-      for (int i = 0; i < 5; ++i) out[i] = sm + i * kChunk;
+      for (int ch = 0; ch < 3; ++ch) store<V>(rows[2 + ch], c[ch]);
     }
-    if (active) {
-      store<V>(out[0], s);
-      store<V>(out[1], w);
-      if (with_color) {
-#pragma unroll
-        for (int ch = 0; ch < 3; ++ch) store<V>(out[2 + ch], c[ch]);
-      }
-    }
-    if constexpr (kBulk) {
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        const uint32_t bytes = 4u * (uint32_t)min(kChunk, v3 - c0);
-#pragma unroll
-        for (int i = 0; i < 5; ++i)
-          if (i < n_rows) bulk_store(r[i], rows + (st * 5 + i) * kChunk, bytes);
-        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-        if (kStages == 1 && next < p.n_items) {
-          bulk_stores_read();       // the one stage's rows are out
-          issue_loads(next, 0);
-        }
-      }
-      st = (st + 1) % kStages;
-    }
-    item = next;
   }
-  if (kBulk && threadIdx.x == 0) bulk_stores_read();
 }
 
 template <int V>
 cudaError_t launch(Args p, cudaStream_t stream) {
-  constexpr bool kBulk = kBulkCopies && V == 4;
   const int v3 = p.vps * p.vps * p.vps;
   p.chunks = (v3 + kThreads * V - 1) / (kThreads * V);
   p.n_items *= p.chunks;
-  const size_t smem = kBulk ? sizeof(float) * kStages * 5 * kThreads * V
-                            : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tsdf_update_blocks_kernel<V, kBulk>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  // the persistent grid: the CTAs resident at once on this device
+  static int resident[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  int n = dev < 64 ? resident[dev] : 0;
+  if (n == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, tsdf_update_blocks_kernel<V>, kThreads, 0);
     if (err != cudaSuccess) return err;
+    n = sms * per_sm;
+    if (dev < 64) resident[dev] = n;
   }
-  tsdf_update_blocks_kernel<V, kBulk>
-      <<<p.n_items, kThreads, smem, stream>>>(p);
+  const int grid = p.n_items < n ? p.n_items : n;
+  tsdf_update_blocks_kernel<V><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -379,8 +259,8 @@ extern "C" {
 
 // Launches the block update on `stream` and returns cudaGetLastError()
 // (0 on success). Allocates nothing and does not synchronise. `vec` is the
-// voxels per thread: 4 (the pools' rows are a multiple of 16 bytes and
-// 16-byte aligned) or 1; anything else is cudaErrorInvalidValue.
+// voxels per thread, 1, 2 or 4, dividing v^3 (the pools then 4 * vec-byte
+// aligned); anything else is cudaErrorInvalidValue.
 int cox_tsdf_update_blocks(
     float* sdf_pool, float* w_pool, float* c_pool,
     const int32_t* block_coords, const int32_t* k, const int32_t* slots,
@@ -392,7 +272,7 @@ int cox_tsdf_update_blocks(
     int use_distance_weight, void* stream) {
   if (n_lanes <= 0) return (int)cudaSuccess;
   const int v3 = vps * vps * vps;
-  if (vps <= 0 || !(vec == 1 || (vec == 4 && v3 % 4 == 0)))
+  if (vps <= 0 || !(vec == 1 || vec == 2 || vec == 4) || v3 % vec != 0)
     return (int)cudaErrorInvalidValue;
   const Args p{sdf_pool, w_pool, c_pool, block_coords, k, slots, mask,
                depth, color, T_cam_sm, n_lanes, 0, mb, vps, height, width,
@@ -400,7 +280,11 @@ int cox_tsdf_update_blocks(
                max_weight, voxel_size, block_size, use_dropoff,
                use_distance_weight};
   const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(vec == 4 ? launch<4>(p, s) : launch<1>(p, s));
+  switch (vec) {
+    case 4: return (int)launch<4>(p, s);
+    case 2: return (int)launch<2>(p, s);
+    default: return (int)launch<1>(p, s);
+  }
 }
 
 const char* cox_error_string(int err) {

@@ -44,9 +44,10 @@ LAUNCHES = 0
 
 
 def voxels_per_thread(v3: int) -> int:
-    """The kernel's path, by shape alone: 4 voxels per thread in 16-byte
-    accesses when a row of v³ f32 is a multiple of 16 bytes, else 1."""
-    return 4 if v3 % 4 == 0 else 1
+    """The kernel's path, by shape alone: 2 voxels per thread in 8-byte
+    accesses when a row of v³ f32 is a multiple of 8 bytes (even v), else
+    1."""
+    return 2 if v3 % 2 == 0 else 1
 
 
 def update_blocks_reference(spec: vx.VoxelGridSpec, cfg,
@@ -142,9 +143,9 @@ def update_blocks(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
 
     CUDA tensors launch the kernel (one launch) or raise; CPU tensors run
     ``update_blocks_reference``. The kernel's path follows from the shape
-    alone: rows of v³ f32 that are a multiple of 16 bytes (even v) take
-    4 voxels per thread in 16-byte accesses, and the pools must then be
-    16-byte aligned; other rows (odd v) take 1 voxel per thread."""
+    alone: rows of v³ f32 that are a multiple of 8 bytes (even v) take 2
+    voxels per thread in 8-byte accesses, and the pools must then be
+    8-byte aligned; other rows (odd v) take 1 voxel per thread."""
     global LAUNCHES
     device = layers.sdf.device
     if device.type == "cpu":
@@ -187,10 +188,11 @@ def update_blocks(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
 def launch(lib, spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
            layers: vx.TsdfLayer, k: Tensor, slots: Tensor,
            slot_mask: Tensor, depth: Tensor, color: Optional[Tensor],
-           T_cam_sm: Tensor) -> None:
+           T_cam_sm: Tensor, vec: Optional[int] = None) -> None:
     """Launch ``lib``'s block update on the current stream, operands
     unchecked (``update_blocks`` checks them; tools/time_k1_variants.py
-    launches builds of edited copies of the kernel through this)."""
+    launches builds of edited copies of the kernel through this, and
+    sets ``vec``, the voxels per thread, to time other widths)."""
     v = spec.voxels_per_side
     tau = spec.truncation
     err = lib.cox_tsdf_update_blocks(
@@ -199,7 +201,7 @@ def launch(lib, spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
         k.data_ptr(), slots.data_ptr(), slot_mask.data_ptr(),
         depth.data_ptr(), None if color is None else color.data_ptr(),
         T_cam_sm.data_ptr(), slots.shape[0], spec.max_blocks, v,
-        voxels_per_thread(v ** 3),
+        vec or voxels_per_thread(v ** 3),
         intr.height, intr.width, intr.fx, intr.fy, intr.cx, intr.cy,
         cfg.min_range, cfg.max_range, tau, f32_reciprocal(0.5 * tau),
         cfg.max_weight, spec.voxel_size, spec.block_size,

@@ -57,7 +57,7 @@ def _stacked(spec, device):
 
 def _spec(vps):
     """10 cm voxels (5 cm at 16³): 4³, 8³ and 16³ rows take the kernel's
-    4-voxels-per-thread path, 5³ rows (500 bytes) its per-voxel path."""
+    2-voxels-per-thread path, 5³ rows (500 bytes) its per-voxel path."""
     return vx.VoxelGridSpec(voxel_size=0.05 if vps == 16 else 0.1,
                             voxels_per_side=vps, grid_dim=16,
                             max_blocks=256, truncation=0.3)
@@ -159,8 +159,8 @@ def test_kernel_edge_lanes_match_twin(gpu, vps):
 
 @pytest.mark.cuda
 def test_wrapper_rejects_misaligned_pools(gpu):
-    """Rows of 16-byte multiples go to the kernel's 16-byte path, so a pool
-    that starts off a 16-byte boundary is refused; 5³ rows are not."""
+    """Rows of 8-byte multiples go to the kernel's 8-byte path, so a pool
+    that starts off an 8-byte boundary is refused; 5³ rows are not."""
     depths, colors, traj = _frames(gpu, 1)
     planar = colors[0].permute(2, 0, 1).contiguous()
     for vps, refused in ((8, True), (5, False)):

@@ -107,7 +107,7 @@ def test_color_layout():
 @pytest.mark.parametrize("vps,with_color", [
     (8, True), (8, False),
     # the GPU tests' other block sizes (tests/test_torch_cuda.py): 4³ and
-    # 16³ rows take the kernel's 4-voxels-per-thread path, 5³ its
+    # 16³ rows take the kernel's 2-voxels-per-thread path, 5³ its
     # per-voxel path; 10 cm voxels, 5 cm at 16³
     (4, True), (5, True), (16, True)],
     ids=["color", "depth_only", "v4", "v5", "v16"])

@@ -8,19 +8,21 @@ Builds the block-update kernel from the repository's source ("as is") and
 from copies of it changed by the edits named in VARIANTS (each edit must
 match the source exactly once, so a variant that no longer applies fails
 the run), one nvcc per build, all started together, with the port's
-flags, into the git-ignored csrc/build/variants/. The operating point is
-chip_smoke.py's: the bench clip's frame 1 (640x480, 5 cm voxels, 16^3
-blocks, 512 lanes) on pools that hold frame 0. Builds marked exact are
-first held to the torch twin (cuda_tsdf.update_blocks_reference) with
-torch.equal on every pool there, and at 5^3 blocks (the per-voxel path);
-the others leave part of the work out on purpose and are only timed.
-Then each build's device microseconds per launch come from CUDA-graph
-replays, cold (the captured launches cycle over copies of the frame's
-rows in every submap of two collections, at least twice the 50 MB L2,
-so rows come from HBM) and warm (the same rows every launch), in rounds
-that visit the builds in order and then in reverse. Prints the card's
-nvidia-smi line, each build's ptxas register line, and one line per
-build. Fails without a CUDA GPU.
+flags, into the git-ignored csrc/build/variants/. The committed build is
+also run at the other widths of WIDTHS (voxels per thread) and on the
+live lanes alone. The operating point is chip_smoke.py's: the bench
+clip's frame 1 (640x480, 5 cm voxels, 16^3 blocks, 512 lanes) on pools
+that hold frame 0. Exact runs are first held to the torch twin
+(cuda_tsdf.update_blocks_reference) with torch.equal on every pool there
+and at 5^3 blocks (the per-voxel path); the others leave part of the work
+out on purpose and are only timed. Then each run's device microseconds
+per launch come from CUDA-graph replays, cold (the captured launches
+cycle over copies of the frame's rows in every submap of two
+collections, at least twice the 50 MB L2, so rows come from HBM) and
+warm (the same rows every launch), in rounds that visit the runs in
+order and then in reverse. Prints the card's nvidia-smi line, each
+build's ptxas register line, and one line per run. Fails without a CUDA
+GPU.
 """
 
 from __future__ import annotations
@@ -37,67 +39,37 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import torch  # noqa: E402
 
-_LAUNCH = ("  tsdf_update_blocks_kernel<V, kBulk>\n"
-           "      <<<p.n_items, kThreads, smem, stream>>>(p);")
-_PERSISTENT = [("constexpr int kStages = 1;", "constexpr int kStages = 2;"),
-               (_LAUNCH, (
-                   "  int dev = 0, sms = 0, per_sm = 0;\n"
-                   "  cudaGetDevice(&dev);\n"
-                   "  cudaDeviceGetAttribute(&sms, "
-                   "cudaDevAttrMultiProcessorCount, dev);\n"
-                   "  cudaOccupancyMaxActiveBlocksPerMultiprocessor(\n"
-                   "      &per_sm, tsdf_update_blocks_kernel<V, kBulk>, "
-                   "kThreads, smem);\n"
-                   "  const int grid = p.n_items < sms * per_sm ? p.n_items "
-                   ": sms * per_sm;\n"
-                   "  tsdf_update_blocks_kernel<V, kBulk>\n"
-                   "      <<<grid, kThreads, smem, stream>>>(p);"))]
-_BULK = [("constexpr bool kBulkCopies = false;",
-          "constexpr bool kBulkCopies = true;")]
-_CHUNK512 = [("constexpr int kThreads = 256;",
-              "constexpr int kThreads = 128;")]
+_STREAM = [(f"*reinterpret_cast<const {t}*>(src)",
+            f"__ldcs(reinterpret_cast<const {t}*>(src))")
+           for t in ("float4", "float2")] + [
+    ("x[0] = *src;", "x[0] = __ldcs(src);"),
+    ("*reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);",
+     "__stcs(reinterpret_cast<float4*>(dst), "
+     "make_float4(x[0], x[1], x[2], x[3]));"),
+    ("*reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);",
+     "__stcs(reinterpret_cast<float2*>(dst), make_float2(x[0], x[1]));"),
+    ("*dst = x[0];", "__stcs(dst, x[0]);")]
 _GATHER_D = "d[j] = p.depth[in_img ? lin[j] : 0];"
 _GATHER_C = "ci[ch][j] = plane[ch][in_img ? lin[j] : 0];"
 # name → (exact, [(text, replacement), ...])
 VARIANTS = {
-    # rows through shared memory by 1-D bulk copies (TMA) and back by bulk
-    # stores, instead of 16-byte register loads issued before the gathers
-    "bulk": (True, _BULK),
-    # 512 and 2048 voxels per CTA instead of 1024
-    "chunk512": (True, _CHUNK512),
-    "chunk2048": (True, [("constexpr int kThreads = 256;",
-                          "constexpr int kThreads = 512;")]),
-    # as many CTAs as fit on the card at once, each walking work items;
-    # with bulk copies two row buffers, item j+1's rows coming in during j
-    "persistent": (True, _PERSISTENT),
-    "persistent_bulk": (True, _PERSISTENT + _BULK),
-    "persistent_chunk512": (True, _PERSISTENT + _CHUNK512),
-    # 2 voxels per thread (twice the threads, half the rows each)
-    "vec2": (True, [("vec == 4 ? launch<4>(p, s)", "vec == 4 ? launch<2>(p, s)")]),
+    # one CTA per work item instead of the persistent grid
+    "static": (True, [("const int grid = p.n_items < n ? p.n_items : n;",
+                       "const int grid = p.n_items;")]),
+    # 128 and 512 threads per CTA instead of 256 (work items of 256 and
+    # 1,024 voxels at 2 voxels per thread)
+    "threads128": (True, [("constexpr int kThreads = 256;",
+                           "constexpr int kThreads = 128;")]),
+    "threads512": (True, [("constexpr int kThreads = 256;",
+                           "constexpr int kThreads = 512;")]),
+    # rows loaded and stored evict-first
+    "stream_rows": (True, _STREAM),
     # the depth and colour pixels read past L1 (cached in L2 only)
     "gathers_l2": (True, [(_GATHER_D,
                            "d[j] = __ldcg(&p.depth[in_img ? lin[j] : 0]);"),
                           (_GATHER_C,
                            "ci[ch][j] = __ldcg(&plane[ch][in_img ? lin[j] "
                            ": 0]);")]),
-    # rows loaded and stored evict-first
-    "stream_rows": (True, [
-        ("const float4 t = *reinterpret_cast<const float4*>(src);",
-         "const float4 t = __ldcs(reinterpret_cast<const float4*>(src));"),
-        ("*reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);",
-         "__stcs(reinterpret_cast<float4*>(dst), "
-         "make_float4(x[0], x[1], x[2], x[3]));")]),
-    # at most 64 registers: four CTAs of 256 threads per SM instead of 3
-    "min_blocks4": (True, [("__global__ void __launch_bounds__(kThreads)",
-                            "__global__ void __launch_bounds__(kThreads, 4)")]),
-    # the first item's slot read beside its mask byte, not after it
-    "early_slot": (True, [
-        ("  const int k = *p.k;\n",
-         "  const int k = *p.k;\n"
-         "  const int slot0 = p.slots[blockIdx.x / p.chunks];\n"),
-        ("const int64_t row = (int64_t)k * p.mb + p.slots[lane];",
-         "const int64_t row = (int64_t)k * p.mb +\n"
-         "        (item == (int)blockIdx.x ? slot0 : p.slots[lane]);")]),
     # ablations: the colour rows and pixels left out
     "no_color": (False, [("const bool with_color = p.color != nullptr;",
                           "const bool with_color = false;")]),
@@ -105,10 +77,13 @@ VARIANTS = {
     "no_gathers": (False, [(_GATHER_D,
                             "d[j] = 1.0f + 1e-7f * (float)lin[j];"),
                            (_GATHER_C, "ci[ch][j] = 0.5f;")]),
-    # the grid alone: every CTA reads its lane's mask byte and exits
-    "grid_only": (False, [("  while (item < p.n_items) {",
-                           "  while (item < p.n_items && p.mb < 0) {")]),
+    # the grid alone: each work item reads its lane's mask byte, no more
+    "grid_only": (False, [("    if (!p.mask[lane]) continue;\n",
+                           "    if (!p.mask[lane] || p.mb >= 0) continue;\n")]),
 }
+# the committed kernel at other widths than the wrapper's (voxels per
+# thread, passed to the C entry point: no edit)
+WIDTHS = (4, 1)
 
 
 def _edited(src: str, edits) -> str:
@@ -212,30 +187,42 @@ def main() -> None:
     names = [n for n in args.variants.split(",") if n]
     libs = build(names)
 
-    # exactness first: every exact build ≡ the twin, both paths
+    # runs: name → (library, exact, voxels per thread or None for the
+    # wrapper's, live lanes only)
+    runs = {name: (lib, exact, None, False)
+            for name, (lib, exact) in libs.items()}
+    for vec in WIDTHS:
+        runs[f"as is, {vec} voxel(s) per thread"] = (libs["as is"][0], True,
+                                                     vec, False)
+
+    # exactness first: every exact run ≡ the twin, both paths
     for vps in (16, 5):
         cfg, layers, ops = bench_point(device, vps)
         want = _clone(layers)
         cuda_tsdf.update_blocks_reference(cfg.spec, cfg.integrator,
                                           cfg.intrinsics, want, *ops)
-        for name, (lib, exact) in libs.items():
-            if not exact:
+        for name, (lib, exact, vec, _) in runs.items():
+            if not exact or (vec and vps ** 3 % vec):
                 continue
             got = _clone(layers)
             cuda_tsdf.launch(lib, cfg.spec, cfg.integrator, cfg.intrinsics,
-                             got, *ops)
+                             got, *ops, vec=vec)
             torch.cuda.synchronize()
             for f in dataclasses.fields(got):
                 assert torch.equal(getattr(got, f.name),
                                    getattr(want, f.name)), (name, vps,
                                                             f.name)
-        print(f"exact builds ≡ twin at {vps}^3 blocks, "
+        print(f"exact runs ≡ twin at {vps}^3 blocks, "
               f"{int(ops[2].sum())} live lanes of {ops[1].shape[0]}")
         del layers, want, got
 
     cfg, layers, ops = bench_point(device)
     spec, icfg, intr = cfg.spec, cfg.integrator, cfg.intrinsics
     n_live = int(ops[2].sum())
+    if bool(ops[2][:n_live].all()):
+        # the live lanes lead: the committed kernel on them alone shows
+        # what the masked lanes' work items cost
+        runs["as is, live lanes only"] = (libs["as is"][0], True, None, True)
     S = layers.sdf.shape[0]
     for name in ("sdf", "weight", "color", "block_coords"):
         t = getattr(layers, name)
@@ -249,24 +236,22 @@ def main() -> None:
           f"cycle of {len(pairs)} launches over "
           f"{len(cols) * per_col / 1e6:.0f} MB of distinct rows")
 
-    runs = {name: (lib, ops) for name, (lib, _) in libs.items()}
-    if bool(ops[2][:n_live].all()):
-        # the live lanes lead: the committed kernel on them alone shows
-        # what the masked lanes' CTAs cost
-        runs["as is, live lanes only"] = (libs["as is"][0], (
-            ops[0], ops[1][:n_live].contiguous(),
-            ops[2][:n_live].contiguous(), *ops[3:]))
     graphs = {}
-    for name, (lib, run_ops) in runs.items():
+    for name, (lib, _, vec, live_only) in runs.items():
+        lanes = slice(0, n_live if live_only else None)
+        run_ops = (ops[1][lanes].contiguous(), ops[2][lanes].contiguous(),
+                   *ops[3:])
         turn = [0]
 
-        def cold(lib=lib, run_ops=run_ops, turn=turn):
+        def cold(lib=lib, run_ops=run_ops, vec=vec, turn=turn):
             c, kk = pairs[turn[0] % len(pairs)]
             turn[0] += 1
-            cuda_tsdf.launch(lib, spec, icfg, intr, c, kk, *run_ops[1:])
+            cuda_tsdf.launch(lib, spec, icfg, intr, c, kk, *run_ops,
+                             vec=vec)
 
-        def warm(lib=lib, run_ops=run_ops):
-            cuda_tsdf.launch(lib, spec, icfg, intr, layers, *run_ops)
+        def warm(lib=lib, run_ops=run_ops, vec=vec):
+            cuda_tsdf.launch(lib, spec, icfg, intr, layers, ops[0],
+                             *run_ops, vec=vec)
 
         graphs[name] = {"cold": (graph(cold, 2 * len(pairs)),
                                  2 * len(pairs)),

@@ -216,7 +216,7 @@ def k1_device_times(spec, icfg, intr, layers, args):
     from coxgraph_tpu_torch.core import voxel as vx
     from coxgraph_tpu_torch.ops import cuda_tsdf
 
-    k, slots, mask, depth, color, T = args
+    k, mask = args[0], args[2]
     S = layers.sdf.shape[0]
     for name in ("sdf", "weight", "color", "block_coords"):
         t = getattr(layers, name)
@@ -299,7 +299,6 @@ def phase_main_path(cfg, device, depths, colors, traj):
     del fresh
 
     # accuracy against the analytic scene (tests/test_tsdf.py's gates)
-    spec = cfg.spec
     layer = sm.get_layer(col.layers, 0)
     live = layer.weight > 0
     centers = vx.voxel_centers_of_block(spec, layer.block_coords)

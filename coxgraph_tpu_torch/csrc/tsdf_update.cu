@@ -42,13 +42,13 @@
 // write.
 //
 // On an H100 (PERF.md, tools/time_k1_variants.py) this design reads ~18
-// us per launch with the rows cold in HBM and ~15.5 us with them in L2;
-// 4 voxels per thread in 16-byte accesses read ~20 and ~16, one CTA per
-// item on a static grid ~1 us more, and rows brought through shared
-// memory by 1-D bulk copies (TMA) ~1.5 us more than registers: the
-// register loads already keep 20 KiB of rows in flight per CTA, and the
-// copies add a CTA-wide wait before the bulk stores. Even with the rows
-// in L2 the kernel stays near 15 us: its time goes to the divergent pixel
+// us per launch with the rows cold in HBM and ~15 us with them in L2;
+// 4 voxels per thread in 16-byte accesses read ~19 and ~16, one CTA per
+// item on a static grid ~0.6 us more, and rows brought through shared
+// memory by 1-D bulk copies (TMA) ~1.3 us more than registers: the
+// register loads already keep each CTA's rows in flight, and the copies
+// add a CTA-wide wait before the bulk stores. Even with the rows in L2
+// the kernel stays near 15 us: its time goes to the divergent pixel
 // gathers (~4 us) and to the latency of each item's chain mask -> slot ->
 // rows and block origin -> projection -> gathers -> update.
 

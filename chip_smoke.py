@@ -105,11 +105,9 @@ def _time_ms(fn, reps: int = EVENT_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
-    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
-    one CUDA graph, replayed ``replays`` times between CUDA events, after
-    a warm-up call and replay. A microsecond kernel behind a Python wrapper
-    is otherwise timed at the host's call rate."""
+def capture(fn, reps: int):
+    """A CUDA graph of ``reps`` calls of ``fn``, captured after a warm-up
+    call and replayed once."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
@@ -117,6 +115,15 @@ def _graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
         for _ in range(reps):
             fn()
     graph.replay()
+    return graph
+
+
+def _graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Device milliseconds per call of ``fn``: ``reps`` calls captured in
+    one CUDA graph, replayed ``replays`` times between CUDA events, after
+    a warm-up call and replay. A microsecond kernel behind a Python wrapper
+    is otherwise timed at the host's call rate."""
+    graph = capture(fn, reps)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -205,43 +212,55 @@ def phase_kernel_vs_twin(cfg, device, depths, colors, traj):
     return max_err, (lk, lt, args)
 
 
-def k1_device_times(spec, icfg, intr, layers, args):
-    """K1's device time from CUDA-graph replays → (cold ms, warm ms, MB of
-    distinct pool rows per cold cycle). Cold: the compared frame's block
-    coords and rows go into every submap of ``layers`` and of copies of
-    it, enough that one cycle of the captured calls over the (collection,
-    k) pairs moves at least twice the 50 MB L2 in rows, so each call reads
-    its rows from HBM; every call keeps the frame's slots, mask, images
-    and pose. Warm: the same pools every call."""
+def k1_cold_pairs(spec, layers, n_live: int):
+    """The (collection, k) pairs over which K1's cold device time cycles →
+    (pairs, MB of distinct pool rows per cycle). The compared frame's block
+    coords and rows (submap 0 of ``layers``) go into every submap of
+    ``layers`` and of copies of it, enough that one cycle over the pairs
+    moves at least twice the 50 MB L2 in rows, so each call reads its rows
+    from HBM."""
     from coxgraph_tpu_torch.core import voxel as vx
-    from coxgraph_tpu_torch.ops import cuda_tsdf
 
-    k, mask = args[0], args[2]
     S = layers.sdf.shape[0]
     for name in ("sdf", "weight", "color", "block_coords"):
         t = getattr(layers, name)
         t[1:] = t[:1]                       # the compared frame ran at k = 0
-    row_bytes = 5 * spec.voxels_per_side ** 3 * 4
-    per_col = S * int(mask.sum()) * row_bytes
+    per_col = S * n_live * 5 * spec.voxels_per_side ** 3 * 4
     n_col = max(2, -(-2 * 50_000_000 // per_col))
     cols = [layers] + [vx.TsdfLayer(**{
         f.name: getattr(layers, f.name).clone()
         for f in dataclasses.fields(layers)}) for _ in range(n_col - 1)]
-    ks = [torch.full((), s, dtype=torch.int32, device=k.device)
+    ks = [torch.full((), s, dtype=torch.int32, device=layers.sdf.device)
           for s in range(S)]
-    pairs = [(c, kk) for c in cols for kk in ks]
+    return [(c, kk) for c in cols for kk in ks], n_col * per_col / 1e6
+
+
+def round_robin(items, fn):
+    """A call of no arguments that runs ``fn(*item)`` on the next of
+    ``items`` each time, in turn."""
     turn = [0]
 
-    def cold():
-        c, kk = pairs[turn[0] % len(pairs)]
+    def call():
+        fn(*items[turn[0] % len(items)])
         turn[0] += 1
-        cuda_tsdf.update_blocks(spec, icfg, intr, c, kk, *args[1:])
+    return call
 
+
+def k1_device_times(spec, icfg, intr, layers, args):
+    """K1's device time from CUDA-graph replays → (cold ms, warm ms, MB of
+    distinct pool rows per cold cycle). Cold: the captured calls cycle
+    over ``k1_cold_pairs``; every call keeps the frame's slots, mask,
+    images and pose. Warm: the same pools every call."""
+    from coxgraph_tpu_torch.ops import cuda_tsdf
+
+    pairs, cycle_mb = k1_cold_pairs(spec, layers, int(args[2].sum()))
+    cold = round_robin(pairs, lambda c, kk: cuda_tsdf.update_blocks(
+        spec, icfg, intr, c, kk, *args[1:]))
     cold_ms = _graph_ms(cold, reps=2 * len(pairs))
     warm_ms = _graph_ms(lambda: cuda_tsdf.update_blocks(
         spec, icfg, intr, layers, *args))
-    del cols, pairs
-    return cold_ms, warm_ms, n_col * per_col / 1e6
+    del pairs, cold
+    return cold_ms, warm_ms, cycle_mb
 
 
 def phase_main_path(cfg, device, depths, colors, traj):

@@ -41,23 +41,25 @@
 // lanes, clamped to max_blocks - 1, may share a live lane's row and never
 // write.
 //
-// On an H100 (PERF.md, tools/time_k1_variants.py) this design reads ~18
-// us per launch with the rows cold in HBM and ~15 us with them in L2;
-// 4 voxels per thread in 16-byte accesses read ~19 and ~16, one CTA per
-// item on a static grid ~0.6 us more, and rows brought through shared
-// memory by 1-D bulk copies (TMA) ~1.3 us more than registers: the
-// register loads already keep each CTA's rows in flight, and the copies
-// add a CTA-wide wait before the bulk stores. Even with the rows in L2
-// the kernel stays near 15 us: its time goes to the divergent pixel
-// gathers (~4 us) and to the latency of each item's chain mask -> slot ->
-// rows and block origin -> projection -> gathers -> update.
+// On an H100 (PERF.md, tools/time_k1_variants.py) this design reads ~17.5
+// us per launch with the rows cold in HBM and ~14.5 us with them in L2;
+// 256 threads per CTA read ~0.7 us more cold, one CTA per item on a
+// static grid ~0.8 us more, 1 voxel per thread ~2 us more, and 4 voxels
+// per thread in 16-byte accesses (since removed) ~1 us more. Rows brought
+// through shared memory by 1-D bulk copies (TMA) read ~1.3 us more than
+// registers: the register loads already keep each CTA's rows in flight,
+// and the copies add a CTA-wide wait before the bulk stores. Even with
+// the rows in L2 the kernel stays near 14.5 us: its time goes to the
+// divergent pixel gathers (~3.5 us) and to the latency of each item's
+// chain mask -> slot -> rows and block origin -> projection -> gathers ->
+// update.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;   // threads per CTA
+constexpr int kThreads = 512;   // threads per CTA
 
 struct Args {
   float* sdf_pool;               // (S*mb, v3)
@@ -79,11 +81,8 @@ struct Args {
 // V consecutive f32 in one access of 4 * V bytes
 template <int V>
 __device__ __forceinline__ void load(const float* src, float (&x)[V]) {
-  static_assert(V == 1 || V == 2 || V == 4, "1, 2 or 4 voxels a thread");
-  if constexpr (V == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(src);
-    x[0] = t.x; x[1] = t.y; x[2] = t.z; x[3] = t.w;
-  } else if constexpr (V == 2) {
+  static_assert(V == 1 || V == 2, "1 or 2 voxels a thread");
+  if constexpr (V == 2) {
     const float2 t = *reinterpret_cast<const float2*>(src);
     x[0] = t.x; x[1] = t.y;
   } else {
@@ -93,9 +92,7 @@ __device__ __forceinline__ void load(const float* src, float (&x)[V]) {
 
 template <int V>
 __device__ __forceinline__ void store(float* dst, const float (&x)[V]) {
-  if constexpr (V == 4) {
-    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
-  } else if constexpr (V == 2) {
+  if constexpr (V == 2) {
     *reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);
   } else {
     *dst = x[0];
@@ -259,7 +256,7 @@ extern "C" {
 
 // Launches the block update on `stream` and returns cudaGetLastError()
 // (0 on success). Allocates nothing and does not synchronise. `vec` is the
-// voxels per thread, 1, 2 or 4, dividing v^3 (the pools then 4 * vec-byte
+// voxels per thread, 1 or 2, dividing v^3 (the pools then 4 * vec-byte
 // aligned); anything else is cudaErrorInvalidValue.
 int cox_tsdf_update_blocks(
     float* sdf_pool, float* w_pool, float* c_pool,
@@ -272,7 +269,7 @@ int cox_tsdf_update_blocks(
     int use_distance_weight, void* stream) {
   if (n_lanes <= 0) return (int)cudaSuccess;
   const int v3 = vps * vps * vps;
-  if (vps <= 0 || !(vec == 1 || vec == 2 || vec == 4) || v3 % vec != 0)
+  if (vps <= 0 || !(vec == 1 || vec == 2) || v3 % vec != 0)
     return (int)cudaErrorInvalidValue;
   const Args p{sdf_pool, w_pool, c_pool, block_coords, k, slots, mask,
                depth, color, T_cam_sm, n_lanes, 0, mb, vps, height, width,
@@ -280,11 +277,7 @@ int cox_tsdf_update_blocks(
                max_weight, voxel_size, block_size, use_dropoff,
                use_distance_weight};
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (vec) {
-    case 4: return (int)launch<4>(p, s);
-    case 2: return (int)launch<2>(p, s);
-    default: return (int)launch<1>(p, s);
-  }
+  return (int)(vec == 2 ? launch<2>(p, s) : launch<1>(p, s));
 }
 
 const char* cox_error_string(int err) {

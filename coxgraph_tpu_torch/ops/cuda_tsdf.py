@@ -188,11 +188,10 @@ def update_blocks(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
 def launch(lib, spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
            layers: vx.TsdfLayer, k: Tensor, slots: Tensor,
            slot_mask: Tensor, depth: Tensor, color: Optional[Tensor],
-           T_cam_sm: Tensor, vec: Optional[int] = None) -> None:
+           T_cam_sm: Tensor) -> None:
     """Launch ``lib``'s block update on the current stream, operands
     unchecked (``update_blocks`` checks them; tools/time_k1_variants.py
-    launches builds of edited copies of the kernel through this, and
-    sets ``vec``, the voxels per thread, to time other widths)."""
+    launches builds of edited copies of the kernel through this)."""
     v = spec.voxels_per_side
     tau = spec.truncation
     err = lib.cox_tsdf_update_blocks(
@@ -201,7 +200,7 @@ def launch(lib, spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
         k.data_ptr(), slots.data_ptr(), slot_mask.data_ptr(),
         depth.data_ptr(), None if color is None else color.data_ptr(),
         T_cam_sm.data_ptr(), slots.shape[0], spec.max_blocks, v,
-        vec or voxels_per_thread(v ** 3),
+        voxels_per_thread(v ** 3),
         intr.height, intr.width, intr.fx, intr.fy, intr.cx, intr.cy,
         cfg.min_range, cfg.max_range, tau, f32_reciprocal(0.5 * tau),
         cfg.max_weight, spec.voxel_size, spec.block_size,

@@ -9,20 +9,19 @@ from copies of it changed by the edits named in VARIANTS (each edit must
 match the source exactly once, so a variant that no longer applies fails
 the run), one nvcc per build, all started together, with the port's
 flags, into the git-ignored csrc/build/variants/. The committed build is
-also run at the other widths of WIDTHS (voxels per thread) and on the
-live lanes alone. The operating point is chip_smoke.py's: the bench
-clip's frame 1 (640x480, 5 cm voxels, 16^3 blocks, 512 lanes) on pools
-that hold frame 0. Exact runs are first held to the torch twin
+also run on the live lanes alone. The operating point is chip_smoke.py's:
+the bench clip's frame 1 (640x480, 5 cm voxels, 16^3 blocks, 512 lanes)
+on pools that hold frame 0. Exact runs are first held to the torch twin
 (cuda_tsdf.update_blocks_reference) with torch.equal on every pool there
 and at 5^3 blocks (the per-voxel path); the others leave part of the work
 out on purpose and are only timed. Then each run's device microseconds
-per launch come from CUDA-graph replays, cold (the captured launches
-cycle over copies of the frame's rows in every submap of two
-collections, at least twice the 50 MB L2, so rows come from HBM) and
-warm (the same rows every launch), in rounds that visit the runs in
-order and then in reverse. Prints the card's nvidia-smi line, each
-build's ptxas register line, and one line per run. Fails without a CUDA
-GPU.
+per launch come from CUDA-graph replays (chip_smoke.capture), cold (the
+captured launches cycle over chip_smoke.k1_cold_pairs: copies of the
+frame's rows in every submap of two collections, at least twice the 50
+MB L2, so rows come from HBM) and warm (the same rows every launch), in
+rounds that visit the runs in order and then in reverse. Prints the
+card's nvidia-smi line, each build's ptxas register line, and one line
+per run. Fails without a CUDA GPU.
 """
 
 from __future__ import annotations
@@ -39,13 +38,12 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 import torch  # noqa: E402
 
-_STREAM = [(f"*reinterpret_cast<const {t}*>(src)",
-            f"__ldcs(reinterpret_cast<const {t}*>(src))")
-           for t in ("float4", "float2")] + [
+import chip_smoke  # noqa: E402
+
+_STREAM = [
+    ("*reinterpret_cast<const float2*>(src)",
+     "__ldcs(reinterpret_cast<const float2*>(src))"),
     ("x[0] = *src;", "x[0] = __ldcs(src);"),
-    ("*reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);",
-     "__stcs(reinterpret_cast<float4*>(dst), "
-     "make_float4(x[0], x[1], x[2], x[3]));"),
     ("*reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);",
      "__stcs(reinterpret_cast<float2*>(dst), make_float2(x[0], x[1]));"),
     ("*dst = x[0];", "__stcs(dst, x[0]);")]
@@ -56,12 +54,15 @@ VARIANTS = {
     # one CTA per work item instead of the persistent grid
     "static": (True, [("const int grid = p.n_items < n ? p.n_items : n;",
                        "const int grid = p.n_items;")]),
-    # 128 and 512 threads per CTA instead of 256 (work items of 256 and
-    # 1,024 voxels at 2 voxels per thread)
-    "threads128": (True, [("constexpr int kThreads = 256;",
+    # 128 and 256 threads per CTA instead of 512 (work items of 256 and
+    # 512 voxels at 2 voxels per thread)
+    "threads128": (True, [("constexpr int kThreads = 512;",
                            "constexpr int kThreads = 128;")]),
-    "threads512": (True, [("constexpr int kThreads = 256;",
-                           "constexpr int kThreads = 512;")]),
+    "threads256": (True, [("constexpr int kThreads = 512;",
+                           "constexpr int kThreads = 256;")]),
+    # 1 voxel per thread where the wrapper asks for 2 (work items of 512
+    # voxels)
+    "vec1": (True, [("launch<2>(p, s)", "launch<1>(p, s)")]),
     # rows loaded and stored evict-first
     "stream_rows": (True, _STREAM),
     # the depth and colour pixels read past L1 (cached in L2 only)
@@ -81,9 +82,6 @@ VARIANTS = {
     "grid_only": (False, [("    if (!p.mask[lane]) continue;\n",
                            "    if (!p.mask[lane] || p.mb >= 0) continue;\n")]),
 }
-# the committed kernel at other widths than the wrapper's (voxels per
-# thread, passed to the C entry point: no edit)
-WIDTHS = (4, 1)
 
 
 def _edited(src: str, edits) -> str:
@@ -160,18 +158,6 @@ def _clone(layers):
                            for f in dataclasses.fields(layers)})
 
 
-def graph(launch, reps):
-    """A CUDA graph of ``reps`` calls of ``launch`` (after a warm-up)."""
-    launch()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(reps):
-            launch()
-    g.replay()
-    return g
-
-
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variants", default=",".join(VARIANTS),
@@ -187,13 +173,8 @@ def main() -> None:
     names = [n for n in args.variants.split(",") if n]
     libs = build(names)
 
-    # runs: name → (library, exact, voxels per thread or None for the
-    # wrapper's, live lanes only)
-    runs = {name: (lib, exact, None, False)
-            for name, (lib, exact) in libs.items()}
-    for vec in WIDTHS:
-        runs[f"as is, {vec} voxel(s) per thread"] = (libs["as is"][0], True,
-                                                     vec, False)
+    # runs: name → (library, exact, live lanes only)
+    runs = {name: (lib, exact, False) for name, (lib, exact) in libs.items()}
 
     # exactness first: every exact run ≡ the twin, both paths
     for vps in (16, 5):
@@ -201,12 +182,12 @@ def main() -> None:
         want = _clone(layers)
         cuda_tsdf.update_blocks_reference(cfg.spec, cfg.integrator,
                                           cfg.intrinsics, want, *ops)
-        for name, (lib, exact, vec, _) in runs.items():
-            if not exact or (vec and vps ** 3 % vec):
+        for name, (lib, exact, _) in runs.items():
+            if not exact:
                 continue
             got = _clone(layers)
             cuda_tsdf.launch(lib, cfg.spec, cfg.integrator, cfg.intrinsics,
-                             got, *ops, vec=vec)
+                             got, *ops)
             torch.cuda.synchronize()
             for f in dataclasses.fields(got):
                 assert torch.equal(getattr(got, f.name),
@@ -222,40 +203,26 @@ def main() -> None:
     if bool(ops[2][:n_live].all()):
         # the live lanes lead: the committed kernel on them alone shows
         # what the masked lanes' work items cost
-        runs["as is, live lanes only"] = (libs["as is"][0], True, None, True)
-    S = layers.sdf.shape[0]
-    for name in ("sdf", "weight", "color", "block_coords"):
-        t = getattr(layers, name)
-        t[1:] = t[:1]
-    per_col = S * n_live * 5 * spec.voxels_per_side ** 3 * 4
-    n_col = max(2, -(-100_000_000 // per_col))
-    cols = [layers] + [_clone(layers) for _ in range(n_col - 1)]
-    pairs = [(c, torch.full((), s, dtype=torch.int32, device=device))
-             for c in cols for s in range(S)]
+        runs["as is, live lanes only"] = (libs["as is"][0], True, True)
+    pairs, cycle_mb = chip_smoke.k1_cold_pairs(spec, layers, n_live)
     print(f"bench point: {n_live} live lanes of {ops[1].shape[0]}; cold "
-          f"cycle of {len(pairs)} launches over "
-          f"{len(cols) * per_col / 1e6:.0f} MB of distinct rows")
+          f"cycle of {len(pairs)} launches over {cycle_mb:.0f} MB of "
+          f"distinct rows")
 
     graphs = {}
-    for name, (lib, _, vec, live_only) in runs.items():
+    for name, (lib, _, live_only) in runs.items():
         lanes = slice(0, n_live if live_only else None)
         run_ops = (ops[1][lanes].contiguous(), ops[2][lanes].contiguous(),
                    *ops[3:])
-        turn = [0]
 
-        def cold(lib=lib, run_ops=run_ops, vec=vec, turn=turn):
-            c, kk = pairs[turn[0] % len(pairs)]
-            turn[0] += 1
-            cuda_tsdf.launch(lib, spec, icfg, intr, c, kk, *run_ops,
-                             vec=vec)
+        def launch(c, kk, lib=lib, run_ops=run_ops):
+            cuda_tsdf.launch(lib, spec, icfg, intr, c, kk, *run_ops)
 
-        def warm(lib=lib, run_ops=run_ops, vec=vec):
-            cuda_tsdf.launch(lib, spec, icfg, intr, layers, ops[0],
-                             *run_ops, vec=vec)
-
-        graphs[name] = {"cold": (graph(cold, 2 * len(pairs)),
+        cold = chip_smoke.round_robin(pairs, launch)
+        warm = chip_smoke.round_robin([(layers, ops[0])], launch)
+        graphs[name] = {"cold": (chip_smoke.capture(cold, 2 * len(pairs)),
                                  2 * len(pairs)),
-                        "warm": (graph(warm, 20), 20)}
+                        "warm": (chip_smoke.capture(warm, 20), 20)}
     replays = 10
     times = {name: {"cold": [], "warm": []} for name in runs}
     start = torch.cuda.Event(enable_timing=True)

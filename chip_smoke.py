@@ -6,10 +6,11 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py
 
 It drives the port's per-robot integration path (HostMapper.step_batch →
-integrate_batch → allocation pass + CUDA block-update kernel K1) and its
+integrate_batch → allocation pass + CUDA block-update kernel K1), its
 multi-robot loop-detection path (LoopDetector → features → the CUDA
-Hamming kernel K2 → RANSAC) and fails (nonzero exit, no result line) if
-anything is wrong:
+Hamming kernel K2 → RANSAC) and its serving path (step_batch, then live
+meshing, ESDF and layer merge, in plain torch) and fails (nonzero exit,
+no result line) if anything is wrong:
 
   1. device    — require a CUDA GPU; print nvidia-smi's name and power limit
   2. build     — build the kernel library from csrc/ with nvcc (sm_90a);
@@ -58,6 +59,16 @@ anything is wrong:
                  filled past capacity through ingest_keypoints and one
                  8-member sub-batch: evictions, per-client balance, each
                  member in its own slot, a revisit still detected
+ 10. serving   — at the bench point, the clip in four windows through
+                 HostMapper.step_batch (no host sync; K1 launched once per
+                 frame), live_mesh after each window equal to
+                 extract_mesh(quantize=False) of the same layer, also after
+                 a live_mesh_async whose finish() was dropped; ESDF band
+                 equal to the TSDF and |dist| ≤ max_distance; a merge at
+                 the identity pose into an empty doubled pool keeps every
+                 live block with weights within bf16 rounding; kernel
+                 launches per mesh extraction, ESDF build and merge
+                 (torch.profiler); stage_benchmark's dict
 
 The line before the last is the card's nvidia-smi name and power limit,
 the one before it the kernels' JSON record; the last line is
@@ -751,6 +762,125 @@ def phase_detector_state(device, ident):
     assert rev and rev[0].from_client == 0 and err < 0.05, msgs
 
 
+def _launches(fn) -> int:
+    """CUDA kernel launches of one call of ``fn`` (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+
+
+def phase_serving(cfg, device, depths, colors, traj, ident):
+    """Phase 10 → K1's launches on the serving path."""
+    from coxgraph_tpu_torch.core import geometry as geo
+    from coxgraph_tpu_torch.core import voxel as vx
+    from coxgraph_tpu_torch.eval import benchmarks as bm
+    from coxgraph_tpu_torch.mapper import submap_mapper as sm
+    from coxgraph_tpu_torch.ops import cuda_tsdf
+    from coxgraph_tpu_torch.ops import esdf as esdf_ops
+    from coxgraph_tpu_torch.ops import merge as merge_ops
+    from coxgraph_tpu_torch.ops import mesh as mesh_ops
+
+    spec = cfg.spec
+    n = depths.shape[0]
+    ts = np.arange(n, dtype=np.float64) * 0.05
+    hm = sm.HostMapper(cfg, device=device)
+    bounds = np.linspace(0, n, 5).astype(int)
+
+    def window(i):
+        lo, hi = bounds[i], bounds[i + 1]
+        # no device→host sync may happen on the per-frame path
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            hm.step_batch(depths[lo:hi], colors[lo:hi], traj[lo:hi],
+                          ts[lo:hi])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def live_equals_full(tag):
+        t0 = time.perf_counter()
+        v, c = hm.live_mesh(quantize=False)
+        live_ms = (time.perf_counter() - t0) * 1e3
+        layer = sm.get_layer(hm.state.collection.layers, 0)
+        vf, cf = mesh_ops.extract_mesh(spec, layer, quantize=False)
+        assert v.shape[0] > 0, tag
+        assert np.array_equal(v, vf) and np.array_equal(c, cf), tag
+        m = hm.live_mesher(0)
+        print(f"[10] {tag}: live_mesh {v.shape[0]} triangles ≡ "
+              f"extract_mesh in {live_ms:.1f} ms, chunks re-meshed so far "
+              f"{m.chunks_remeshed} (buffer growths {m.buffer_growths}, "
+              f"capacity growths {m.capacity_growths})")
+
+    torch.cuda.synchronize()
+    cuda_tsdf.LAUNCHES = 0
+    window(0)
+    live_equals_full("window 1")
+    window(1)
+    live_equals_full("window 2")
+    window(2)
+    hm.live_mesh_async(quantize=False)          # finish() never runs
+    window(3)
+    launches = cuda_tsdf.LAUNCHES
+    live_equals_full("window 4, after a dropped finish()")
+    assert launches == n, launches
+
+    layer = sm.get_layer(hm.state.collection.layers, 0)
+    ecfg = esdf_ops.EsdfConfig()
+    e = esdf_ops.esdf_from_tsdf(spec, layer, ecfg)
+    sdf = layer.sdf
+    band = e.observed & (sdf.abs() < spec.truncation)
+    assert int(band.sum()) > 1000
+    assert torch.equal(e.dist[band], sdf[band])
+    assert float(e.dist.abs().max()) <= ecfg.max_distance
+    beyond = int((e.observed & (e.dist > spec.truncation)).sum())
+    assert beyond > 0
+    print(f"[10] ESDF: {int(band.sum())} band voxels ≡ the TSDF, "
+          f"{beyond} observed voxels beyond the band, |dist| ≤ "
+          f"{ecfg.max_distance}")
+
+    dst_spec = dataclasses.replace(spec, max_blocks=2 * spec.max_blocks)
+    dst = vx.create_tsdf_layer(dst_spec, device)
+    merge_ops.merge_layer_into_sized(dst_spec, dst, layer,
+                                     geo.identity(device), src_spec=spec)
+    nb = int(layer.num_blocks)
+    d_slot = vx.lookup_block(spec, dst, layer.block_coords[:nb])
+    assert bool((d_slot >= 0).all()), "a live source block was dropped"
+    got = dst.weight[d_slot.long()]
+    src_w = layer.weight[:nb]
+    seen = got > 0
+    err = (got - src_w).abs()[seen]
+    assert int(seen.sum()) > 1000
+    assert bool((err <= src_w[seen] * 2.0 ** -8 + 1e-4).all()), float(
+        err.max())
+    print(f"[10] merge at the identity into {dst_spec.max_blocks} blocks: "
+          f"{nb} of {nb} live source blocks kept ({int(dst.num_blocks)} "
+          f"allocated), {int(seen.sum())} voxels observed, max |w - "
+          f"w_src| {float(err.max()):.3e}")
+    del dst
+
+    counts = {
+        "extract_mesh_device": _launches(lambda: mesh_ops.extract_mesh_device(
+            spec, layer, 0.1)),
+        "esdf_from_tsdf": _launches(lambda: esdf_ops.esdf_from_tsdf(
+            spec, layer)),
+        "merge_layer_into_sized": _launches(
+            lambda: merge_ops.merge_layer_into_sized(
+                dst_spec, vx.create_tsdf_layer(dst_spec, device), layer,
+                geo.identity(device), src_spec=spec)),
+    }
+    print(f"[10] CUDA kernel launches per call (torch.profiler): {counts}")
+    del hm, layer, e
+    torch.cuda.empty_cache()
+    out = bm.stage_benchmark(depths, colors, traj)
+    print(f"[10] stage_benchmark {json.dumps(out)} — {ident}")
+    return launches
+
+
 def main() -> None:
     from coxgraph_tpu_torch import _build, runtime
     from coxgraph_tpu_torch.eval import benchmarks as bm
@@ -835,6 +965,10 @@ def main() -> None:
     fps = bm.tsdf_benchmark(depths, colors, traj)
     print(f"[6] tsdf_integration_fps {fps:.2f} frames/s (4 windows x "
           f"{depths.shape[0]} frames, 640x480, 5 cm) — {ident}")
+
+    # ---- 10. serving path --------------------------------------------------
+    serve_launches = phase_serving(cfg, device, depths, colors, traj, ident)
+    print(f"[10] K1 launches on the serving path: {serve_launches}")
     del depths, colors, traj
     torch.cuda.empty_cache()
 

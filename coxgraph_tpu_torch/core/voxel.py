@@ -18,10 +18,11 @@ write pool rows without atomics.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
-from ..utils.tensorops import scatter_drop
+from ..utils.tensorops import f32_reciprocal, scatter_drop
 
 Tensor = torch.Tensor
 
@@ -93,6 +94,17 @@ def create_tsdf_layer(spec: VoxelGridSpec, device,
 # ---------------------------------------------------------------------------
 # Coordinate transforms
 # ---------------------------------------------------------------------------
+
+
+def point_to_voxel(spec: VoxelGridSpec, p: Tensor) -> Tensor:
+    """World point (...,3) → global voxel index (...,3) int32 (floor)."""
+    return torch.floor(p * f32_reciprocal(spec.voxel_size)).to(torch.int32)
+
+
+def voxel_to_block(spec: VoxelGridSpec, v: Tensor):
+    """Global voxel index → (block coord, local voxel index), both int32."""
+    b = torch.div(v, spec.voxels_per_side, rounding_mode="floor")
+    return b, v - b * spec.voxels_per_side
 
 
 def block_in_grid(spec: VoxelGridSpec, b: Tensor) -> Tensor:
@@ -202,8 +214,93 @@ def allocate_and_slots(spec: VoxelGridSpec, flat_index: Tensor,
                           t_cells)
 
 
+def allocate_blocks(spec: VoxelGridSpec, layer: TsdfLayer,
+                    block_coords: Tensor,
+                    mask: Optional[Tensor] = None) -> TsdfLayer:
+    """Ensure every (masked) block coordinate (N,3) int32, duplicates
+    allowed, has a pool slot → a layer with new ``block_index``,
+    ``block_coords`` and ``num_blocks`` (the pools are shared with
+    ``layer``). New blocks take consecutive slots in grid-cell order;
+    blocks past the pool's capacity are dropped. This is candidate_cells
+    with room for every candidate, then allocate_cells."""
+    g3 = spec.grid_dim ** 3
+    valid = block_in_grid(spec, block_coords)
+    if mask is not None:
+        valid = valid & mask
+    t_cells = candidate_cells(spec, block_grid_slot(spec, block_coords),
+                              valid, block_coords.shape[0])
+    flat, coords, nb, _, _ = allocate_cells(
+        spec, layer.block_index.reshape(g3), layer.block_coords,
+        layer.num_blocks, t_cells)
+    return dataclasses.replace(
+        layer, block_index=flat.reshape(layer.block_index.shape),
+        block_coords=coords, num_blocks=nb)
+
+
+# ---------------------------------------------------------------------------
+# Lookup / sampling
+# ---------------------------------------------------------------------------
+
+
 def lookup_block(spec: VoxelGridSpec, layer: TsdfLayer, b: Tensor) -> Tensor:
     """Block coordinate (...,3) → pool slot (...,) int32 (-1 if missing)."""
     slot = block_grid_slot(spec, b)
     idx = layer.block_index.reshape(-1)[slot.long()]
     return torch.where(block_in_grid(spec, b), idx, -1)
+
+
+def voxel_lookup(spec: VoxelGridSpec, layer: TsdfLayer, v: Tensor):
+    """Global voxel index (...,3) → (sdf, weight, valid); a voxel of a
+    missing block reads (truncation, 0, False)."""
+    b, lv = voxel_to_block(spec, v)
+    idx = lookup_block(spec, layer, b)
+    vps = spec.voxels_per_side
+    lin = (lv[..., 0] * vps + lv[..., 1]) * vps + lv[..., 2]
+    valid = idx >= 0
+    flat = torch.where(valid, idx.long() * vps ** 3 + lin, 0)
+    sdf = layer.sdf.reshape(-1)[flat]
+    w = layer.weight.reshape(-1)[flat]
+    return (torch.where(valid, sdf, spec.truncation),
+            torch.where(valid, w, 0.0), valid)
+
+
+def shift(v: Tensor, off) -> Tensor:
+    """v (...,3) + a constant (dx, dy, dz), with no host-to-device copy
+    of the constant."""
+    return torch.stack([v[..., a] + off[a] for a in range(3)], dim=-1)
+
+
+def trilinear_corners(spec: VoxelGridSpec, p: Tensor):
+    """Trilinear setup at world points p (...,3): voxel centres sit at
+    (v + 0.5)·s, so the base voxel is floor(p/s − 0.5) → (base (...,3)
+    int32, frac (...,3), [(corner offset (dx, dy, dz), weight (...,))] × 8
+    in the reference's corner order)."""
+    x = p * f32_reciprocal(spec.voxel_size) - 0.5
+    v0 = torch.floor(x).to(torch.int32)
+    frac = x - v0.to(x.dtype)
+    f = [frac[..., a] for a in range(3)]
+    corners = []
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                wt = ((f[0] if dx else 1 - f[0]) * (f[1] if dy else 1 - f[1])
+                      * (f[2] if dz else 1 - f[2]))
+                corners.append(((dx, dy, dz), wt))
+    return v0, corners
+
+
+def sample_tsdf_trilinear(spec: VoxelGridSpec, layer: TsdfLayer, p: Tensor):
+    """Trilinear TSDF interpolation at world points p (...,3) → (sdf,
+    weight, valid); valid needs all 8 corner voxels allocated and
+    observed (weight > 0)."""
+    v0, corners = trilinear_corners(spec, p)
+    sdf_acc = torch.zeros(p.shape[:-1], dtype=layer.sdf.dtype,
+                          device=p.device)
+    w_acc = torch.zeros_like(sdf_acc)
+    valid = torch.ones(p.shape[:-1], dtype=torch.bool, device=p.device)
+    for off, wt in corners:
+        s, w, ok = voxel_lookup(spec, layer, shift(v0, off))
+        sdf_acc = sdf_acc + wt * s
+        w_acc = w_acc + wt * w
+        valid = valid & ok & (w > 0)
+    return sdf_acc, w_acc, valid

@@ -1,10 +1,12 @@
-"""TSDF integration benchmark — port of the TSDF half of
+"""TSDF integration and serving benchmarks — port of the TSDF half of
 ``coxgraph_tpu.eval.benchmarks`` — and the loop-detection operating point.
 
 The integration measurement is the per-robot streaming hot path
 (``mapper.integrate_batch``) at the reference operating point: 640×480
 RGB-D, 5 cm voxels, 16³ blocks, 0.15 m truncation, 10 m max range, on a
 30-frame orbit clip that the port renders itself on the given device.
+``stage_benchmark`` times the serving stages over the same map: ESDF,
+mesh extraction, layer merge and serving while streaming.
 
 The loop-detection point is the endurance run's detector
 (``detector_config``) on two robots' 640×480 clips (``two_robot_clip``).
@@ -12,9 +14,11 @@ The loop-detection point is the endurance run's detector
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import time
 
+import numpy as np
 import torch
 
 N_FRAMES = 30
@@ -96,6 +100,91 @@ def tsdf_benchmark(depths, colors, traj, n_frames: int | None = None,
         sm.integrate_batch(cfg, state, depths, colors, traj, ts)
     fence(state)
     return n * windows / (time.perf_counter() - t0)
+
+
+def _fence(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def stage_benchmark(depths, colors, traj) -> dict:
+    """Serving-stage times over the bench map on the frames' device, each
+    timed call after a warm one and ending in ``torch.cuda.synchronize()``
+    → {union_watermark, dropped_union_blocks (of the 30-frame integration
+    run), esdf_ms, esdf_blocks (batch ESDF build), mesh_extract_ms,
+    mesh_tris (full extraction with the quantized readback), merge_ms
+    (the layer merged at the identity pose into an empty pool of twice
+    its blocks, built outside the timed region), serve_while_streaming_fps,
+    serve_live_mesh_tris (3 windows of HostMapper.step_batch → live_mesh
+    → ESDF of the active submap, each window served before the next)}."""
+    from ..core import geometry as geo
+    from ..core import voxel as vx
+    from ..mapper import submap_mapper as sm
+    from ..ops import esdf as esdf_ops
+    from ..ops import merge as merge_ops
+    from ..ops import mesh as mesh_ops
+
+    device = depths.device
+    cfg = _mapper_config()
+    n = depths.shape[0]
+    ts = torch.arange(n, dtype=torch.float32, device=device) * 0.05
+    s = sm.create_mapper(cfg, device)
+    sm.start_submap(cfg, s, traj[0], ts[0])
+    sm.integrate_batch(cfg, s, depths, colors, traj, ts)
+    layer = sm.get_layer(s.collection.layers, 0)
+    out = {"union_watermark": int(s.union_watermark),
+           "dropped_union_blocks": int(s.dropped_union_blocks)}
+
+    esdf_ops.esdf_from_tsdf(cfg.spec, layer)                  # warm
+    _fence(device)
+    t0 = time.perf_counter()
+    esdf_ops.esdf_from_tsdf(cfg.spec, layer)
+    _fence(device)
+    out["esdf_ms"] = (time.perf_counter() - t0) * 1e3
+    out["esdf_blocks"] = int(layer.num_blocks)
+
+    mesh_ops.extract_mesh(cfg.spec, layer, min_weight=0.1)    # warm
+    _fence(device)
+    t0 = time.perf_counter()
+    v, _ = mesh_ops.extract_mesh(cfg.spec, layer, min_weight=0.1)
+    out["mesh_extract_ms"] = (time.perf_counter() - t0) * 1e3
+    out["mesh_tris"] = int(v.shape[0])
+
+    dst_spec = dataclasses.replace(cfg.spec,
+                                   max_blocks=2 * cfg.spec.max_blocks)
+    pose = geo.identity(device)
+    dst_warm = vx.create_tsdf_layer(dst_spec, device)
+    dst_timed = vx.create_tsdf_layer(dst_spec, device)
+    merge_ops.merge_layer_into_sized(dst_spec, dst_warm, layer, pose,
+                                     src_spec=cfg.spec)       # warm
+    _fence(device)
+    t0 = time.perf_counter()
+    merge_ops.merge_layer_into_sized(dst_spec, dst_timed, layer, pose,
+                                     src_spec=cfg.spec)
+    _fence(device)
+    out["merge_ms"] = (time.perf_counter() - t0) * 1e3
+    del dst_warm, dst_timed
+
+    mapper = sm.HostMapper(cfg, device=device)
+    ts_np = np.arange(n, dtype=np.float32) * 0.05
+
+    def serve():
+        mapper.step_batch(depths, colors, traj, ts_np)
+        v, _ = mapper.live_mesh()
+        esdf_ops.esdf_from_tsdf(
+            cfg.spec, sm.get_layer(mapper.state.collection.layers, 0))
+        _fence(device)
+        return v.shape[0]
+
+    serve()                                                   # warm
+    windows = 3
+    t0 = time.perf_counter()
+    for _ in range(windows):
+        tris = serve()
+    out["serve_while_streaming_fps"] = n * windows / (
+        time.perf_counter() - t0)
+    out["serve_live_mesh_tris"] = int(tris)
+    return out
 
 
 def detector_config():

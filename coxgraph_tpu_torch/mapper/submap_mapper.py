@@ -15,8 +15,11 @@ new one back, the port updates the state's tensors IN PLACE:
 all per-frame values stay on the device: a frame issues no device-to-host
 read.
 
-Not ported yet: live meshing, ``optimize_local``, ``merged_layer``,
-``step_points`` and ``finish_map``.
+The serving half: ``HostMapper.live_mesh`` / ``live_mesh_async`` /
+``live_mesh_odom`` (incremental meshing from ``mesh_dirty``) and
+``merged_layer`` (all submaps fused into one odom-frame layer).
+
+Not ported yet: ``optimize_local``, ``step_points`` and ``finish_map``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,9 @@ from .. import runtime
 from ..core import geometry as geo
 from ..core import voxel as vx
 from ..frontends.synthetic import PinholeIntrinsics
+from ..ops import merge as merge_ops
 from ..ops import tsdf as tsdf_ops
+from ..ops.mesh_incremental import IncrementalMesher
 from ..solver import pose_graph as pg
 from ..utils.tensorops import put_row, where_fields
 
@@ -293,6 +298,12 @@ class HostMapper:
         self.mirror_enabled = self.n_submaps == 0
         self.host_T_odom_submap: list = []     # per-submap np (7,)
         self.host_submaps: list = []           # {start,end,stamps,poses}
+        # per-submap incremental meshers (live_mesh), the submaps that
+        # integrated anything since their last live_mesh dispatch, and the
+        # odom-frame soups of clean submaps: {k: (pose, verts, colors)}
+        self._meshers: dict = {}
+        self._touched_submaps: set = set()
+        self._odom_soup_cache: dict = {}
 
     # -- host mirror maintenance ----------------------------------------
 
@@ -447,6 +458,7 @@ class HostMapper:
                   None if color is None else self._tensor(color), T_dev,
                   t_dev)
         self._mirror_frame(T_odom_cam, t)
+        self._touched_submaps.add(max(self.n_submaps - 1, 0))
         return started
 
     def step_batch(self, depths, colors, T_odom_cams, ts) -> int:
@@ -500,6 +512,7 @@ class HostMapper:
                 integrate_batch(self.cfg, self.state, depths[lo:hi],
                                 None if colors is None else colors[lo:hi],
                                 T_dev[lo:hi], ts_dev[lo:hi])
+                self._touched_submaps.add(max(self.n_submaps - 1, 0))
                 if T_host is not None:
                     for i in range(lo, hi):
                         self._mirror_frame(T_host[i], float(ts[i]))
@@ -511,3 +524,123 @@ class HostMapper:
                 and self._windows_done % self.stats_check_windows == 0):
             self._schedule_stats_check()
         return len(starts)
+
+    # -- live meshing -----------------------------------------------------
+
+    _MESHER_KWARGS = ("chunk", "min_weight", "max_tris", "quantize")
+
+    def live_mesher(self, k: int, **kwargs) -> IncrementalMesher:
+        """The incremental mesher of submap ``k`` (created on first use
+        with ``kwargs``). Settings are fixed at creation: a kwarg that
+        conflicts with the existing mesher raises (except ``max_tris``,
+        which grows), an unknown kwarg raises, no kwargs accepts it."""
+        unknown = set(kwargs) - set(self._MESHER_KWARGS)
+        if unknown:
+            raise TypeError(f"live_mesher: unknown kwargs {sorted(unknown)}")
+        m = self._meshers.get(k)
+        if m is None:
+            m = IncrementalMesher(self.cfg.spec, **kwargs)
+            self._meshers[k] = m
+            return m
+        for key, val in kwargs.items():
+            if key != "max_tris" and getattr(m, key) != val:
+                raise ValueError(
+                    f"live_mesher({k}) already exists with "
+                    f"{key}={getattr(m, key)!r}; requested {val!r} — "
+                    "per-submap mesher settings are fixed at creation")
+        return m
+
+    def live_mesh(self, k: Optional[int] = None, **kwargs):
+        """Up-to-date triangle soup of submap ``k`` (default: active) in
+        the SUBMAP frame, re-meshing only the blocks updated since the
+        last call → (verts (T,3,3), colors (T,3,3)) f32 numpy."""
+        return self.live_mesh_async(k, **kwargs)()
+
+    def live_mesh_async(self, k: Optional[int] = None, **kwargs):
+        """Dispatch half of :meth:`live_mesh` for pipelined serving:
+        consume submap ``k``'s dirty bits and copy its layer, then return
+        a zero-argument ``finish()`` that re-meshes and returns the soup.
+        ``finish()`` meshes the geometry as of dispatch, even after later
+        ``step_batch`` calls (``get_layer`` copies). Call ``finish()`` from
+        one serving thread only.
+
+        The consumed row stays pending on the mesher until a ``finish()``
+        has used it, and each dispatch ORs the pending row in, so a
+        dispatch whose ``finish()`` never runs loses no update."""
+        if k is None:
+            k = max(self.n_submaps - 1, 0)
+        self._consume_pending_stats()
+        row, _ = consume_mesh_dirty(self.state, k)
+        mesher = self.live_mesher(k, **kwargs)
+        if mesher.pending is not None:
+            row = row | mesher.pending
+        mesher.pending = row
+        layer = get_layer(self.state.collection.layers, k)
+        self._touched_submaps.discard(k)
+
+        def finish():
+            mesher.update(layer, row)
+            if mesher.pending is row:
+                mesher.pending = None
+            return mesher.mesh()
+
+        return finish
+
+    def live_mesh_odom(self, **kwargs):
+        """All submaps' live meshes concatenated in the ODOM frame (one
+        incremental update per submap that changed) → (verts (T,3,3),
+        colors (T,3,3))."""
+        poses = self.state.collection.T_odom_submap.cpu().numpy()
+        vs, cs = [], []
+        for k in range(self.n_submaps):
+            m = self._meshers.get(k)
+            clean = (m is not None and m.pending is None
+                     and k not in self._touched_submaps)
+            cached = self._odom_soup_cache.get(k)
+            if clean and cached is not None \
+                    and np.array_equal(cached[0], poses[k]):
+                # unchanged geometry at an unchanged pose
+                vs.append(cached[1])
+                cs.append(cached[2])
+                continue
+            if clean:
+                # geometry current, pose moved: re-transform the cache
+                v, c = self.live_mesher(k, **kwargs).mesh()
+            else:
+                v, c = self.live_mesh(k, **kwargs)
+            if v.shape[0] == 0:
+                self._odom_soup_cache.pop(k, None)
+                continue
+            vw = geo.transform_points_np(
+                poses[k], v.reshape(-1, 3)).reshape(-1, 3, 3)
+            vw = vw.astype(np.float32)
+            self._odom_soup_cache[k] = (poses[k].copy(), vw, c)
+            vs.append(vw)
+            cs.append(c)
+        if not vs:
+            z = np.zeros((0, 3, 3), np.float32)
+            return z, z.copy()
+        return np.concatenate(vs), np.concatenate(cs)
+
+
+def merged_layer(cfg: MapperConfig, col: SubmapCollection,
+                 growth_cap: int = 4) -> vx.TsdfLayer:
+    """Fuse all submaps into one odom-frame TSDF layer on the collection's
+    device. The target pool grows to the next power of two above the
+    summed live-block count (an upper bound of the union), capped at
+    ``growth_cap`` × the configured pool and at the grid's cells."""
+    spec = cfg.spec
+    n = int(col.num_submaps)
+    if growth_cap > 0 and n:
+        total = int(col.layers.num_blocks[:n].sum())
+        if total > spec.max_blocks:
+            need = min(1 << (total - 1).bit_length(),
+                       growth_cap * spec.max_blocks, spec.grid_dim ** 3)
+            if need > spec.max_blocks:
+                spec = dataclasses.replace(spec, max_blocks=need)
+    merged = vx.create_tsdf_layer(spec, col.layers.sdf.device)
+    for k in range(n):
+        merge_ops.merge_layer_into_sized(
+            spec, merged, get_layer(col.layers, k), col.T_odom_submap[k],
+            src_spec=cfg.spec if spec != cfg.spec else None)
+    return merged

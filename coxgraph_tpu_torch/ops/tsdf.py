@@ -33,7 +33,7 @@ import torch
 from ..core import geometry as geo
 from ..core import voxel as vx
 from ..frontends.synthetic import PinholeIntrinsics
-from ..utils.tensorops import f32_reciprocal
+from ..utils.tensorops import f32_reciprocal, scatter_drop
 from . import cuda_tsdf
 
 Tensor = torch.Tensor
@@ -147,6 +147,31 @@ def _alloc_candidates_soa(spec: vx.VoxelGridSpec, cfg: TsdfIntegratorConfig,
     grid_slots = (gx * gd + gy) * gd + gz
     valid = valid_s[None] & (d_samples > cfg.min_range) & in_grid
     return grid_slots.reshape(-1), valid.reshape(-1)
+
+
+def touched_block_slots(spec: vx.VoxelGridSpec, layer: vx.TsdfLayer,
+                        block_coords: Tensor, valid: Tensor,
+                        max_touched: int):
+    """Dedupe candidate block coords (N,3) → (slots (K,), mask (K,)): the
+    pool slots of the allocated candidates in ascending slot order, K =
+    min(max_touched, max_blocks); slots past K are dropped for this call,
+    masked lanes hold max_blocks − 1. Used by the layer merge."""
+    mb = layer.max_blocks
+    K = min(max_touched, mb)
+    idx = vx.lookup_block(spec, layer, block_coords)
+    ok = valid & (idx >= 0)
+    # every duplicate target receives the same True
+    touched = scatter_drop(torch.zeros((mb,), dtype=torch.bool,
+                                       device=idx.device),
+                           torch.where(ok, idx, mb), torch.ones_like(ok))
+    pos = torch.cumsum(touched.to(torch.int32), 0, dtype=torch.int32) - 1
+    tgt = torch.where(touched & (pos < K), pos, K)
+    slots = scatter_drop(torch.full((K,), mb, dtype=torch.int32,
+                                    device=idx.device),
+                         tgt, torch.arange(mb, dtype=torch.int32,
+                                           device=idx.device))
+    mask = slots < mb
+    return torch.clamp(slots, max=mb - 1), mask
 
 
 def _alloc_pass(spec: vx.VoxelGridSpec, cfg: TsdfIntegratorConfig,

@@ -9,8 +9,8 @@ and returns its leaves unconverted; the caller turns JAX arrays into numpy
 
 ``config_from`` copies any object carrying the JAX configs' attribute
 names (MapperConfig, VoxelGridSpec, TsdfIntegratorConfig,
-PinholeIntrinsics, FeatureConfig, LoopDetectorConfig) into the port's
-frozen dataclasses.
+PinholeIntrinsics, FeatureConfig, LoopDetectorConfig, EsdfConfig) into
+the port's frozen dataclasses.
 
 Keypoints and a loop detector's database cross with their descriptors as
 the uint32 words of the JAX package; in the port they are int32 tensors
@@ -29,6 +29,7 @@ from ..core import voxel as vx
 from ..frontends import loop_detector as ld
 from ..frontends import synthetic as syn
 from ..mapper import submap_mapper as sm
+from ..ops import esdf as esdf_ops
 from ..ops import features as ft
 from ..ops import tsdf as tsdf_ops
 from ..solver import pose_graph as pg
@@ -74,6 +75,17 @@ def layer_from_numpy(arrays: Dict[str, np.ndarray], device) -> vx.TsdfLayer:
 
 
 def layer_to_numpy(layer: vx.TsdfLayer) -> Dict[str, np.ndarray]:
+    return _to_numpy(layer)
+
+
+def esdf_layer_from_numpy(arrays: Dict[str, np.ndarray],
+                          device) -> esdf_ops.EsdfLayer:
+    """{'dist', 'observed', 'block_index', 'block_coords', 'num_blocks'}
+    numpy arrays → the port's EsdfLayer on ``device``."""
+    return _build(esdf_ops.EsdfLayer, arrays, device)
+
+
+def esdf_layer_to_numpy(layer: esdf_ops.EsdfLayer) -> Dict[str, np.ndarray]:
     return _to_numpy(layer)
 
 
@@ -169,7 +181,8 @@ def load_detector_state(det: ld.LoopDetector,
 
 _CONFIGS = {c.__name__: c for c in (
     sm.MapperConfig, vx.VoxelGridSpec, tsdf_ops.TsdfIntegratorConfig,
-    syn.PinholeIntrinsics, ft.FeatureConfig, ld.LoopDetectorConfig)}
+    syn.PinholeIntrinsics, ft.FeatureConfig, ld.LoopDetectorConfig,
+    esdf_ops.EsdfConfig)}
 
 
 def config_from(obj):

@@ -7,6 +7,8 @@ the mask back to the host. These helpers keep every write on the device:
   the end and sliced off (for small arrays: it copies ``dst``);
 * ``put_row`` writes one row at a device index in place, writing the row's
   own value back when the index is out of range;
+* ``put_rows`` writes the masked rows of a batch in place (a masked lane
+  repeats a live lane's write, so no lane writes a row it does not own);
 * ``where_fields`` selects between two dataclasses of tensors field by
   field (the counterpart of a ``lax.cond`` over a pytree).
 
@@ -73,6 +75,23 @@ def put_row(dst: Tensor, k: Tensor, val) -> None:
     else:                       # a Python scalar: a fill, no host copy
         val = cur.new_full(cur.shape[1:], val)
     dst.index_copy_(0, kc, torch.where(inside, val[None], cur))
+
+
+def put_rows(dst: Tensor, idx: Tensor, mask: Tensor, val: Tensor) -> None:
+    """In place ``dst[idx[i]] = val[i]`` for every lane with ``mask[i]``;
+    the other lanes write nothing. ``idx`` (K,) must be in range and
+    unique over the masked lanes.
+
+    A masked-off lane writes the first live lane's row and value again
+    (the same bytes, so the duplicate is harmless); with no live lane,
+    every lane writes ``dst[idx[0]]`` back to itself."""
+    first = torch.argmax(mask.to(torch.int32)).reshape(1)
+    fill = torch.where(mask[first].reshape((1,) * val.dim()),
+                       val.index_select(0, first),
+                       dst.index_select(0, idx[first].long()))
+    m = mask.reshape((-1,) + (1,) * (val.dim() - 1))
+    dst.index_copy_(0, torch.where(mask, idx, idx[first]).long(),
+                    torch.where(m, val, fill).to(dst.dtype))
 
 
 def where_fields(pred: Tensor, a, b):

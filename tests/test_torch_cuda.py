@@ -400,3 +400,112 @@ def test_loop_detector_on_gpu_matches_cpu(gpu):
         err = geo.se3_log(geo.relative(torch.from_numpy(msgs[0].T_from_to),
                                        geo.identity("cpu")))
         assert float(torch.linalg.norm(err)) < 0.05
+
+
+# ---------------------------------------------------------------------------
+# The serving half (plain torch on the card): the same small layer on the
+# card and on the CPU, under the CPU parity tests' tolerances.
+# ---------------------------------------------------------------------------
+
+
+def _sphere_layer(device, seed=0):
+    """A 4³-block sphere (8³ blocks, 0.1 m voxels) with seeded weights and
+    colours, built on the CPU and copied to ``device``."""
+    from coxgraph_tpu_torch.utils import interop
+
+    spec = vx.VoxelGridSpec(voxel_size=0.1, voxels_per_side=8, grid_dim=16,
+                            max_blocks=256, truncation=0.2)
+    r = torch.arange(-2, 2, dtype=torch.int32)
+    coords = torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                         -1).reshape(-1, 3)
+    layer = vx.allocate_blocks(spec, vx.create_tsdf_layer(spec, "cpu"),
+                               coords)
+    n = int(layer.num_blocks)
+    c = vx.voxel_centers_of_block(spec, layer.block_coords[:n])
+    g = torch.Generator().manual_seed(seed)
+    layer.sdf[:n] = (torch.linalg.norm(c - 0.03, dim=-1) - 0.45).reshape(
+        n, -1).clamp(-spec.truncation, spec.truncation)
+    layer.weight[:n] = 0.5 + 2.5 * torch.rand(n, 512, generator=g)
+    layer.color[:n] = torch.rand(n, 3 * 512, generator=g)
+    arrays = interop.layer_to_numpy(layer)
+    return spec, layer, interop.layer_from_numpy(arrays, device)
+
+
+@pytest.mark.cuda
+def test_serving_mesh_on_gpu_matches_cpu(gpu):
+    from coxgraph_tpu_torch.ops import mesh
+    from coxgraph_tpu_torch.ops.mesh_incremental import IncrementalMesher
+
+    spec, cpu_layer, gpu_layer = _sphere_layer(gpu)
+    for quantize in (False, True):
+        vc, cc = mesh.extract_mesh(spec, cpu_layer, quantize=quantize)
+        vg, cg = mesh.extract_mesh(spec, gpu_layer, quantize=quantize)
+        assert vg.shape == vc.shape and vc.shape[0] > 1000
+        np.testing.assert_allclose(vg, vc, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(cg, cc, atol=1e-5, rtol=0)
+    m = IncrementalMesher(spec, chunk=16, quantize=False, max_tris=256)
+    m.full_rebuild(gpu_layer)
+    assert m.buffer_growths >= 1
+    assert np.array_equal(m.mesh()[0], mesh.extract_mesh(
+        spec, gpu_layer, quantize=False)[0])
+    upd = torch.zeros(spec.max_blocks, dtype=torch.bool)
+    upd[5] = True
+    for layer, dev in ((cpu_layer, "cpu"), (gpu_layer, gpu)):
+        assert torch.equal(
+            mesh.dirty_block_chunks(spec, layer, upd.to(dev), 4).cpu(),
+            mesh.dirty_block_chunks(spec, cpu_layer, upd, 4))
+
+
+@pytest.mark.cuda
+def test_serving_esdf_and_merge_on_gpu_match_cpu(gpu):
+    from coxgraph_tpu_torch.ops import esdf, merge
+
+    spec, cpu_layer, gpu_layer = _sphere_layer(gpu)
+    for full in (False, True):
+        ecfg = esdf.EsdfConfig(max_distance=0.8, full_connectivity=full)
+        ec = esdf.esdf_from_tsdf(spec, cpu_layer, ecfg)
+        eg = esdf.esdf_from_tsdf(spec, gpu_layer, ecfg)
+        assert torch.equal(eg.dist.cpu(), ec.dist)
+        assert torch.equal(eg.observed.cpu(), ec.observed)
+    dst_spec = dataclasses.replace(spec, max_blocks=512)
+    q = geo.so3_exp(torch.tensor([0.1, -0.3, 0.2]))
+    for T in (geo.identity("cpu"),
+              torch.cat([q, torch.tensor([0.13, -0.07, 0.21])])):
+        out = {}
+        for dev, layer in (("cpu", cpu_layer), ("cuda", gpu_layer)):
+            dst = vx.create_tsdf_layer(dst_spec, layer.sdf.device)
+            out[dev] = merge.merge_layer_into_sized(
+                dst_spec, dst, layer, T.to(layer.sdf.device), src_spec=spec)
+        for name in ("block_index", "block_coords", "num_blocks"):
+            assert torch.equal(getattr(out["cuda"], name).cpu(),
+                               getattr(out["cpu"], name)), name
+        for name in ("sdf", "weight", "color"):
+            d = (getattr(out["cuda"], name).cpu()
+                 - getattr(out["cpu"], name)).abs()
+            assert float(d.max()) <= 1e-4, name
+
+
+@pytest.mark.cuda
+def test_live_mesh_dropped_finish_on_gpu(gpu):
+    """Dispatch, drop finish(), step, live_mesh: equal to full extraction
+    on the card (the repair of the reference's lost dirty bits)."""
+    from coxgraph_tpu_torch.ops import mesh
+
+    cfg = sm.MapperConfig(
+        spec=vx.VoxelGridSpec(voxel_size=0.1, voxels_per_side=8,
+                              grid_dim=32, max_blocks=1024, truncation=0.3),
+        integrator=tsdf.TsdfIntegratorConfig(max_touched_blocks=512),
+        intrinsics=INTR, max_submaps=8, max_history=64,
+        submap_interval=10.0)
+    depths, colors, traj = _frames(gpu, 3)
+    hm = sm.HostMapper(cfg, device=gpu)
+    hm.step(depths[0], colors[0], traj[0], 0.0)
+    hm.live_mesh(quantize=False)
+    hm.step(depths[1], colors[1], traj[1], 0.1)
+    hm.live_mesh_async(quantize=False)              # finish() dropped
+    hm.step(depths[2], colors[2], traj[2], 0.2)
+    v, c = hm.live_mesh(quantize=False)
+    vf, cf = mesh.extract_mesh(cfg.spec, sm.get_layer(
+        hm.state.collection.layers, 0), quantize=False)
+    assert v.shape[0] > 0
+    assert np.array_equal(v, vf) and np.array_equal(c, cf)

@@ -117,6 +117,7 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 for tool in ("profile_torch_integrate.py", "profile_torch_detect.py",
+             "profile_torch_serve.py",
              "time_k1_variants.py", "time_k2_variants.py"):
     runpy.run_path(os.path.join("tools", tool), run_name="not_main")
 bad = [m for m, mod in sys.modules.items() if mod is not None and (

@@ -762,17 +762,53 @@ def phase_detector_state(device, ident):
     assert rev and rev[0].from_client == 0 and err < 0.05, msgs
 
 
-def _launches(fn) -> int:
-    """CUDA kernel launches of one call of ``fn`` (torch.profiler)."""
+LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
+
+
+def device_us(e) -> float:
+    """An event's self device time, µs (the name differs across torch
+    versions)."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def profiled(fn):
+    """One call of ``fn`` traced with torch.profiler (CPU and CUDA
+    activities), fenced with ``torch.cuda.synchronize()`` → (wall ms,
+    summed device ms, kernel launches, key averages, device-side events,
+    profiler). Device-side events are kernels, memsets and copies: an aten
+    op's self device time repeats the time of the kernels it launched. One
+    stream, so they do not overlap and device ms / wall ms is the device
+    busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if str(e.device_type).endswith("CUDA") and device_us(e) > 0]
+    launches = sum(e.count for e in events if e.key in LAUNCH_KEYS)
+    dev_ms = sum(device_us(e) for e in kernels) / 1e3
+    return wall_ms, dev_ms, launches, events, kernels, prof
+
+
+def print_top(events, kernels, top: int, host: bool = True) -> None:
+    """The ``top`` device-side events by device time and, with ``host``,
+    the ``top`` events by self host time, of a :func:`profiled` call."""
+    print("top device time (self, us):")
+    for e in sorted(kernels, key=device_us, reverse=True)[:top]:
+        print(f"  {device_us(e):10.1f}  x{e.count:<5d} {e.key[:90]}")
+    if host:
+        print("top host time (self CPU, us):")
+        for e in sorted(events, key=lambda e: e.self_cpu_time_total,
+                        reverse=True)[:top]:
+            print(f"  {e.self_cpu_time_total:10.1f}  x{e.count:<5d} "
+                  f"{e.key[:90]}")
 
 
 def phase_serving(cfg, device, depths, colors, traj, ident):
@@ -863,16 +899,20 @@ def phase_serving(cfg, device, depths, colors, traj, ident):
           f"w_src| {float(err.max()):.3e}")
     del dst
 
+    # the merge destination is built outside the trace, as stage_benchmark
+    # keeps it outside merge_ms
+    dst = vx.create_tsdf_layer(dst_spec, device)
+    pose = geo.identity(device)
     counts = {
-        "extract_mesh_device": _launches(lambda: mesh_ops.extract_mesh_device(
-            spec, layer, 0.1)),
-        "esdf_from_tsdf": _launches(lambda: esdf_ops.esdf_from_tsdf(
-            spec, layer)),
-        "merge_layer_into_sized": _launches(
+        "extract_mesh_device": profiled(lambda: mesh_ops.extract_mesh_device(
+            spec, layer, 0.1))[2],
+        "esdf_from_tsdf": profiled(lambda: esdf_ops.esdf_from_tsdf(
+            spec, layer))[2],
+        "merge_layer_into_sized": profiled(
             lambda: merge_ops.merge_layer_into_sized(
-                dst_spec, vx.create_tsdf_layer(dst_spec, device), layer,
-                geo.identity(device), src_spec=spec)),
+                dst_spec, dst, layer, pose, src_spec=spec))[2],
     }
+    del dst
     print(f"[10] CUDA kernel launches per call (torch.profiler): {counts}")
     del hm, layer, e
     torch.cuda.empty_cache()

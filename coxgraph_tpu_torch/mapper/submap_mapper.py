@@ -566,12 +566,13 @@ class HostMapper:
 
         The consumed row stays pending on the mesher until a ``finish()``
         has used it, and each dispatch ORs the pending row in, so a
-        dispatch whose ``finish()`` never runs loses no update."""
+        dispatch whose ``finish()`` never runs loses no update. The
+        mesher's settings are checked before anything is consumed."""
         if k is None:
             k = max(self.n_submaps - 1, 0)
+        mesher = self.live_mesher(k, **kwargs)
         self._consume_pending_stats()
         row, _ = consume_mesh_dirty(self.state, k)
-        mesher = self.live_mesher(k, **kwargs)
         if mesher.pending is not None:
             row = row | mesher.pending
         mesher.pending = row

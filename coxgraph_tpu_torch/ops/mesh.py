@@ -297,34 +297,6 @@ def _buffers(spec: vx.VoxelGridSpec, chunk: int, max_tris: int,
             torch.arange(cap, device=device))
 
 
-def extract_mesh_device(spec: vx.VoxelGridSpec, layer: vx.TsdfLayer,
-                        min_weight: float = 1e-4, chunk: int = 16,
-                        max_tris: int = 2_000_000, slot_base=0,
-                        n_slots: int = None, cap_mult: int = 1):
-    """Mesh extraction over pool slots [slot_base, slot_base + n_slots)
-    (default: the whole layer), chunk after chunk, with no host read.
-
-    → (verts (9, max_tris + cap), colors (9, max_tris + cap), count (),
-    total ()): chunk runs front-compacted at a running offset; ``total``
-    counts every valid triangle before the per-chunk capacity clamp, so
-    total > count means some chunk overflowed (or the buffer filled)."""
-    n_chunks = -(-(n_slots if n_slots is not None else layer.max_blocks)
-                 // chunk)
-    device = layer.sdf.device
-    verts_g, cols_g, cols_idx = _buffers(spec, chunk, max_tris, cap_mult,
-                                         device)
-    ar = torch.arange(chunk, dtype=torch.int32, device=device)
-    off = torch.zeros((), dtype=torch.int32, device=device)
-    total = torch.zeros((), dtype=torch.int32, device=device)
-    for c in range(n_chunks):
-        v, col, cnt, n_tot = mesh_block_chunk(
-            spec, layer, slot_base + c * chunk + ar, min_weight, cap_mult)
-        off_c = _append_run(verts_g, cols_g, off, cols_idx, v, col, max_tris)
-        off = torch.clamp(off_c + cnt, max=max_tris)
-        total = total + n_tot
-    return verts_g, cols_g, off, total
-
-
 def dirty_block_chunks(spec: vx.VoxelGridSpec, layer: vx.TsdfLayer,
                        updated: Tensor, chunk: int = 16) -> Tensor:
     """Expand an updated-block bitmap (max_blocks,) to the mesh-DEPENDENT
@@ -357,24 +329,24 @@ def extract_mesh_chunks_device(spec: vx.VoxelGridSpec,
                                layer: vx.TsdfLayer, chunk: int,
                                min_weight: float, max_tris: int,
                                chunk_ids: Tensor, cap_mult: int = 1):
-    """Mesh extraction restricted to the given block chunks — the
-    incremental re-mesh primitive. chunk_ids: (nc,) int32 on the layer's
-    device (chunk c covers slots [c·chunk, (c+1)·chunk)); negative ids
-    emit nothing. → (verts, colors (9, max_tris + cap), offs (nc,), cnts
-    (nc,), totals (nc,)): chunk i's triangles are columns [offs[i],
-    offs[i] + cnts[i]); totals[i] > cnts[i] means chunk i overflowed its
-    capacity."""
+    """Mesh extraction restricted to the given block chunks, chunk after
+    chunk, with no host read. chunk_ids: (nc,) int32 on the layer's device
+    (chunk c covers slots [c·chunk, (c+1)·chunk)); negative ids emit
+    nothing. → (verts, colors (9, max_tris + cap), offs (nc,), cnts (nc,),
+    totals (nc,)): chunk i's triangles are columns [offs[i], offs[i] +
+    cnts[i]), written at a running offset clamped to max_tris; totals[i]
+    counts chunk i's valid triangles before its capacity clamp, so
+    totals[i] > cnts[i] means it overflowed (or the buffer filled)."""
     device = layer.sdf.device
-    mb = layer.max_blocks
     verts_g, cols_g, cols_idx = _buffers(spec, chunk, max_tris, cap_mult,
                                          device)
     ar = torch.arange(chunk, dtype=torch.int32, device=device)
+    ids = chunk_ids[:, None]
+    slots = torch.where(ids < 0, layer.max_blocks, ids * chunk + ar)
     off = torch.zeros((), dtype=torch.int32, device=device)
     offs, cnts, totals = [], [], []
-    for i in range(chunk_ids.shape[0]):
-        cid = chunk_ids[i]
-        slots = torch.where(cid < 0, mb, cid * chunk + ar)
-        v, col, cnt, n_tot = mesh_block_chunk(spec, layer, slots,
+    for i in range(slots.shape[0]):
+        v, col, cnt, n_tot = mesh_block_chunk(spec, layer, slots[i],
                                               min_weight, cap_mult)
         off_c = _append_run(verts_g, cols_g, off, cols_idx, v, col, max_tris)
         off = torch.clamp(off_c + cnt, max=max_tris)
@@ -383,6 +355,24 @@ def extract_mesh_chunks_device(spec: vx.VoxelGridSpec,
         totals.append(n_tot)
     return (verts_g, cols_g, torch.stack(offs), torch.stack(cnts),
             torch.stack(totals))
+
+
+def extract_mesh_device(spec: vx.VoxelGridSpec, layer: vx.TsdfLayer,
+                        min_weight: float = 1e-4, chunk: int = 16,
+                        max_tris: int = 2_000_000, cap_mult: int = 1):
+    """Mesh extraction over every pool slot, with no host read.
+
+    → (verts (9, max_tris + cap), colors (9, max_tris + cap), count (),
+    total ()): chunk runs front-compacted; ``total`` counts every valid
+    triangle before the per-chunk capacity clamp, so total > count means
+    some chunk overflowed (or the buffer filled)."""
+    n_chunks = -(-layer.max_blocks // chunk)
+    verts, cols, offs, cnts, totals = extract_mesh_chunks_device(
+        spec, layer, chunk, min_weight, max_tris,
+        torch.arange(n_chunks, dtype=torch.int32, device=layer.sdf.device),
+        cap_mult)
+    return (verts, cols, torch.clamp(offs[-1] + cnts[-1], max=max_tris),
+            totals.sum(dtype=torch.int32))
 
 
 def quantize_mesh_device(spec: vx.VoxelGridSpec, layer: vx.TsdfLayer,

@@ -13,8 +13,9 @@ integer, so the base voxel follows rounding noise and a voxel on the
 outer shell of the observed region is valid on one side only: there the
 port is held to the reference run op by op (``jax.disable_jit``), which
 samples each voxel itself as the port does (both reproduce each source
-voxel's bf16 weight to 5e-6), and every flip must lie on the shell
-(observed 2,977 of 32,768 live voxels, all on it). The jitted reference
+voxel's bf16 weight to 5e-6), every flip must lie on the shell, and
+their share stays below 0.12 (observed 2,977 of 32,768 live voxels,
+9.1%, all on the shell). The jitted reference
 is no parity target at the identity: XLA computes the base voxel in
 several fusions that round differently, and 3% of its voxels take a
 neighbour voxel's value (weights off by up to 2.5). ``merged_layer``'s
@@ -178,7 +179,7 @@ def test_merge_at_identity():
                                      jnp.asarray(IDENTITY), 512, JSPEC)
     dst = pmerge.merge_layer_into(DST, _empty(JDST), pl,
                                   torch.from_numpy(IDENTITY), 512, SPEC)
-    flip = _assert_merged(jd, dst, flip_share=1.0)
+    flip = _assert_merged(jd, dst, flip_share=0.12)
     # a flip's global voxel lies on the outer shell of the source region
     # (blocks −2…1 of 8 voxels: voxels −16…15 on every axis)
     slot, lin = np.nonzero(flip)

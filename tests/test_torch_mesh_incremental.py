@@ -245,6 +245,24 @@ def test_live_mesher_settings_are_fixed():
         m.live_mesher(0, colour=True)
 
 
+@pytest.mark.parametrize("bad", [{"quantize": True}, {"colour": True}],
+                         ids=["conflicting", "unknown"])
+def test_refused_dispatch_consumes_nothing(bad):
+    """A live_mesh_async whose kwargs the mesher refuses raises before it
+    consumes the dirty bits: the next live_mesh still equals full
+    extraction."""
+    ds, cs, traj = _clip(2, sweep=0.5 * np.pi)
+    m = sm.HostMapper(CFG, device=CPU)
+    m.step(ds[0], cs[0], traj[0], 0.0)
+    m.live_mesh(quantize=False)
+    m.step(ds[1], cs[1], traj[1], 0.1)
+    with pytest.raises(ValueError if "quantize" in bad else TypeError):
+        m.live_mesh_async(**bad)
+    v, c = m.live_mesh()
+    v_full, c_full = _full(m)
+    assert np.array_equal(v, v_full) and np.array_equal(c, c_full)
+
+
 def test_stage_benchmark_keys_on_a_small_map(monkeypatch):
     """stage_benchmark end to end on the CPU at the 80×60 mapper (counts
     only; its times mean nothing here)."""

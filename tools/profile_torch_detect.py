@@ -21,13 +21,11 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
+from chip_smoke import print_top, profiled  # noqa: E402
 
 
 def main() -> None:
@@ -55,41 +53,15 @@ def main() -> None:
 
     robot0_detector().add_keyframes_batch(batch)          # warm-up
     det = robot0_detector()
-    torch.cuda.synchronize()
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        msgs = det.add_keyframes_batch(batch)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side events only (kernels, memsets, copies): an aten op's
-    # self device time repeats the time of the kernels it launched
-    kernels = [e for e in events
-               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                "cudaLaunchKernelExC"))
-    dev_ms = sum(dev_us(e) for e in kernels) / 1e3
+    msgs = []
+    wall_ms, dev_ms, launches, events, kernels, prof = profiled(
+        lambda: msgs.extend(det.add_keyframes_batch(batch)))
     print(f"sub-batch of {len(batch)} frames ({intr.width}x{intr.height}, "
           f"K = {cfg.features.max_keypoints}, {cfg.max_keyframes} slots): "
           f"wall {wall_ms:.3f} ms, device time {dev_ms:.3f} ms, device "
           f"busy share {dev_ms / wall_ms:.3f}, kernel launches {launches}, "
           f"messages {len(msgs)}")
-    print("top device time (self, us):")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:15]:
-        print(f"  {dev_us(e):10.1f}  x{e.count:<5d} {e.key[:90]}")
-    print("top host time (self CPU, us):")
-    for e in sorted(events, key=lambda e: e.self_cpu_time_total,
-                    reverse=True)[:15]:
-        print(f"  {e.self_cpu_time_total:10.1f}  x{e.count:<5d} "
-              f"{e.key[:90]}")
+    print_top(events, kernels, 15)
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out,

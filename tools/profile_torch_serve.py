@@ -21,43 +21,21 @@ import argparse
 import dataclasses
 import os
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import torch  # noqa: E402
-from torch.profiler import ProfilerActivity, profile  # noqa: E402
-
-
-def _dev_us(e) -> float:
-    return getattr(e, "self_device_time_total",
-                   getattr(e, "self_cuda_time_total", 0.0))
+from chip_smoke import print_top, profiled  # noqa: E402
 
 
 def trace(name: str, fn, top: int) -> None:
-    """Warm ``fn`` once, then trace one call and print its breakdown."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # device-side events only: an aten op's self device time repeats the
-    # time of the kernels it launched
-    kernels = [e for e in events
-               if str(e.device_type).endswith("CUDA") and _dev_us(e) > 0]
-    launches = sum(e.count for e in events
-                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel"))
-    dev_ms = sum(_dev_us(e) for e in kernels) / 1e3
+    """Trace one call of ``fn`` and print its breakdown."""
+    wall_ms, dev_ms, launches, events, kernels, _ = profiled(fn)
     print(f"{name}: wall {wall_ms:.3f} ms (profiled), device time "
           f"{dev_ms:.3f} ms, device busy share {dev_ms / wall_ms:.3f}, "
           f"kernel launches {launches}")
-    for e in sorted(kernels, key=_dev_us, reverse=True)[:top]:
-        print(f"  {_dev_us(e):10.1f} us  x{e.count:<6d} {e.key[:90]}")
+    print_top(events, kernels, top, host=False)
 
 
 def main() -> None:
@@ -89,15 +67,24 @@ def main() -> None:
 
     dst_spec = dataclasses.replace(spec, max_blocks=2 * spec.max_blocks)
     pose = geo.identity(device)
-    trace("extract_mesh (quantized readback)",
-          lambda: mesh_ops.extract_mesh(spec, layer, min_weight=0.1),
-          args.top)
-    trace("esdf_from_tsdf", lambda: esdf_ops.esdf_from_tsdf(spec, layer),
-          args.top)
+
+    def mesh():
+        return mesh_ops.extract_mesh(spec, layer, min_weight=0.1)
+
+    def esdf():
+        return esdf_ops.esdf_from_tsdf(spec, layer)
+
+    def merge_into(dst):
+        return lambda: merge_ops.merge_layer_into_sized(
+            dst_spec, dst, layer, pose, src_spec=spec)
+
+    # each stage warm, and the merge destinations built outside the trace,
+    # as stage_benchmark keeps them outside merge_ms
+    mesh(), esdf(), merge_into(vx.create_tsdf_layer(dst_spec, device))()
+    trace("extract_mesh (quantized readback)", mesh, args.top)
+    trace("esdf_from_tsdf", esdf, args.top)
     trace("merge_layer_into_sized (identity, empty doubled pool)",
-          lambda: merge_ops.merge_layer_into_sized(
-              dst_spec, vx.create_tsdf_layer(dst_spec, device), layer, pose,
-              src_spec=spec), args.top)
+          merge_into(vx.create_tsdf_layer(dst_spec, device)), args.top)
 
 
 if __name__ == "__main__":

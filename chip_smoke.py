@@ -8,9 +8,10 @@ Run from the repository root on a machine with one CUDA GPU:
 It drives the port's per-robot integration path (HostMapper.step_batch →
 integrate_batch → allocation pass + CUDA block-update kernel K1), its
 multi-robot loop-detection path (LoopDetector → features → the CUDA
-Hamming kernel K2 → RANSAC) and its serving path (step_batch, then live
-meshing, ESDF and layer merge, in plain torch) and fails (nonzero exit,
-no result line) if anything is wrong:
+Hamming kernel K2 → RANSAC), its serving path (step_batch, then live
+meshing, ESDF and layer merge, in plain torch) and its solve path (LM
+pose graph, dense registration, the two-phase global optimize, in plain
+torch) and fails (nonzero exit, no result line) if anything is wrong:
 
   1. device    — require a CUDA GPU; print nvidia-smi's name and power limit
   2. build     — build the kernel library from csrc/ with nvcc (sm_90a);
@@ -69,6 +70,27 @@ no result line) if anything is wrong:
                  live block with weights within bf16 rounding; kernel
                  launches per mesh extraction, ESDF build and merge
                  (torch.profiler); stage_benchmark's dict
+ 11. solve     — run right after phase 5, on its mapper: (a) the bench
+                 solve point (solve_benchmark_problem: 64 submaps, 125
+                 pairs; SolverConfig(iterations=10), 6 phase-2
+                 iterations, registration weight 30): solve_benchmark's
+                 solve_s / solve_best_s, a 7-value cost trace that never
+                 rises, the pair alignment cost below 0.3× its initial
+                 value, finite poses; phase 1 run with any host sync an
+                 error, a solve with 6 phase-2 iterations syncing as
+                 often as one with none (the count printed), launches
+                 per LM iteration (torch.profiler), peak device memory;
+                 (b) the stock mapper: a loop closure 0→2, finish_map
+                 with optimize_local sync-free, 30 stamped poses from
+                 trajectory, optimize_two_phase over the three stock
+                 layers (non-increasing trace), a candidate check, and
+                 register_pair(0, 1) from test_registration.py's
+                 perturbation, sync-free: the cost falling, > 200
+                 inliers, the pose error printed (the reference walks
+                 away there too), the normal equations at the start ≡
+                 the CPU's (1e-4 of their max); (c) the
+                 card's optimize_two_phase at 8 submaps ≡ the CPU's
+                 (poses 1e-4 m / rad, trace 1e-4 relative)
 
 The line before the last is the card's nvidia-smi name and power limit,
 the one before it the kernels' JSON record; the last line is
@@ -347,7 +369,8 @@ def phase_main_path(cfg, device, depths, colors, traj):
 
 
 def phase_state_size(device, depths, colors, traj):
-    """Phase 5: the stock MapperConfig with three rollovers."""
+    """Phase 5: the stock MapperConfig with three rollovers → the
+    mapper, which phase 11 goes on with."""
     from coxgraph_tpu_torch.mapper import submap_mapper as sm
 
     cfg = sm.MapperConfig()
@@ -387,7 +410,7 @@ def phase_state_size(device, depths, colors, traj):
     assert int(st.dropped_union_blocks) == 0
     start = col.start_time.cpu().numpy()[:3].tolist()
     assert start == [0.0, 10.0, 20.0], start
-    del hm, st, col
+    return hm
 
 
 def _words(gen, *shape, device):
@@ -921,6 +944,263 @@ def phase_serving(cfg, device, depths, colors, traj, ident):
     return launches
 
 
+def count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")`` →
+    (its result, the host syncs torch flagged during it)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def no_sync(fn):
+    """``fn()`` with any host sync an error."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _fenced_ms(fn):
+    """(result, wall ms) of one ``fn()`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def pair_alignment_cost(problem, poses) -> float:
+    """Σ over the overlapping pairs at ``poses`` of the weighted
+    registration cost (tests/test_global_opt_scale.py's measure)."""
+    from coxgraph_tpu_torch.ops import registration as reg
+    from coxgraph_tpu_torch.server import global_opt as go
+
+    _, _, layers, spec, rcfg, _, _ = problem
+    tot = 0.0
+    for (i, j) in go.find_overlapping_pairs(spec, layers, poses):
+        pts, sdf, m = reg.surface_point_cache(spec, layers[i], rcfg)
+        _, _, c, nin = reg.registration_normal_eq(
+            spec, layers[j], pts, sdf, m, poses[i], poses[j], 0.1)
+        tot += float(c) * 900.0 / max(int(nin), 1)
+    return tot
+
+
+def _pose_errors(a, b):
+    """(max translation m, max rotation rad) between pose sets (N,7)."""
+    from coxgraph_tpu_torch.core import geometry as geo
+
+    d = geo.relative(a.double(), b.double())
+    return (float(geo.translation(a.double() - b.double()).norm(dim=-1)
+                  .max()),
+            float(geo.so3_log(geo.rotation(d)).norm(dim=-1).max()))
+
+
+def phase_solve(device, ident, hm):
+    """Phase 11: the solve half at the bench solve point, on phase 5's
+    stock mapper, and the card's solve against the CPU's."""
+    from coxgraph_tpu_torch.core import geometry as geo
+    from coxgraph_tpu_torch.eval import benchmarks as bm
+    from coxgraph_tpu_torch.mapper import submap_mapper as sm
+    from coxgraph_tpu_torch.ops import registration as reg
+    from coxgraph_tpu_torch.server import global_opt as go
+    from coxgraph_tpu_torch.solver import pose_graph as pg
+    from coxgraph_tpu_torch.utils import interop
+
+    # ---- (a) the bench solve point ----
+    t_start = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    problem, build_ms = _fenced_ms(bm.solve_benchmark_problem)
+    init, cons, layers, spec, rcfg, scfg, fixed = problem
+    out = bm.solve_benchmark(problem=problem)
+    caches, stack = [None] * len(layers), {}
+
+    def solve(iters=6):
+        return go.optimize_two_phase(
+            init, cons, spec, layers, reg_cfg=rcfg, solver_cfg=scfg,
+            registration_weight=30.0, reg_iterations=iters, fixed=fixed,
+            reg_caches=caches, stack_cache=stack)
+
+    solve()
+    (poses, info), syncs = count_syncs(solve)
+    _, syncs0 = count_syncs(lambda: solve(0))
+    peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+    trace = info["phase2_cost_trace"]
+    print(f"[11] bench solve point ({out['submaps']} submaps, "
+          f"{out['pairs']} pairs, problem built in {build_ms:.1f} ms): "
+          f"solve_s {out['solve_s']:.4f}, solve_best_s "
+          f"{out['solve_best_s']:.4f}; phase-1 cost {info['phase1_cost']:.3e}"
+          f", trace {[round(c, 6) for c in trace]}")
+    assert out["pairs"] >= 100 and out["submaps"] == 64, out
+    assert info["n_registration_pairs"] == out["pairs"]
+    assert len(trace) == 7, trace
+    for a, b in zip(trace[:-1], trace[1:]):
+        assert b <= a * (1 + 1e-5), trace
+    assert bool(torch.isfinite(poses).all())
+    c0 = pair_alignment_cost(problem, init)
+    c1 = pair_alignment_cost(problem, poses)
+    print(f"[11] pair alignment cost {c0:.4f} at the initial poses → "
+          f"{c1:.4f}")
+    assert c1 < 0.3 * c0, (c0, c1)
+    # each phase-2 iteration is sync-free: 6 iterations sync as often
+    # as none; the phase-1 LM runs with any sync an error
+    assert syncs == syncs0, (syncs, syncs0)
+    _, p1_ms = _fenced_ms(lambda: no_sync(lambda: pg.optimize(
+        init, cons, scfg, fixed=fixed)))
+    _, w6 = _fenced_ms(solve)
+    _, w0 = _fenced_ms(lambda: solve(0))
+
+    # launches and device time per LM iteration: differences of short
+    # runs (phase 1 alone with 1 and 2 iterations; phase 2 after a
+    # 0-iteration phase 1, with 1 and 2 iterations), each traced
+    def short(p1_iters, p2_iters=None):
+        cfg1 = dataclasses.replace(scfg, iterations=p1_iters)
+        if p2_iters is None:
+            return lambda: pg.optimize(init, cons, cfg1, fixed=fixed)
+        return lambda: go.optimize_two_phase(
+            init, cons, spec, layers, reg_cfg=rcfg, solver_cfg=cfg1,
+            registration_weight=30.0, reg_iterations=p2_iters, fixed=fixed,
+            reg_caches=caches, stack_cache=stack)
+
+    a1, a2 = profiled(short(1)), profiled(short(2))
+    b1, b2 = profiled(short(0, 1)), profiled(short(0, 2))
+    print(f"[11] phase 1 (pg.optimize, {scfg.iterations} LM iterations, "
+          f"sync-free): {p1_ms:.1f} ms, {a2[2] - a1[2]} launches and "
+          f"{a2[1] - a1[1]:.2f} ms of device time per iteration; phase 2: "
+          f"{(w6 - w0) / 6:.1f} ms per iteration ({w6:.1f} ms with 6, "
+          f"{w0:.1f} with 0), {b2[2] - b1[2]} launches and "
+          f"{b2[1] - b1[1]:.2f} ms of device time per iteration; host "
+          f"syncs per solve {syncs}; peak device memory {peak_mb:.1f} MiB "
+          f"above phase 5's mapper — {ident} "
+          f"({time.perf_counter() - t_start:.1f} s so far)")
+
+    # ---- (b) phase 5's stock mapper ----
+    cfg, st = hm.cfg, hm.state
+    col = st.collection
+    T_true = col.T_odom_submap[:3].clone()
+    pert = geo.se3_exp(torch.tensor([0.01, -0.01, 0.02, 0.05, -0.03, 0.02],
+                                    device=device))
+    sm.add_loop_closure(st, 0, 2, geo.compose(
+        geo.relative(T_true[0], T_true[2]), pert))
+    orig = sm.optimize_local
+
+    def strict_local(*a, **k):
+        return no_sync(lambda: orig(*a, **k))
+
+    sm.optimize_local = strict_local
+    try:
+        fin = profiled(hm.finish_map)
+    finally:
+        sm.optimize_local = orig
+    tj = profiled(lambda: sm.trajectory(col))
+    stamps, traj = sm.trajectory(col)
+    moved = _pose_errors(col.T_odom_submap[:3], T_true)
+    print(f"[11] stock mapper: loop closure 0→2 added "
+          f"({int(st.constraints.count)} constraints), finish_map "
+          f"{fin[0]:.1f} ms profiled, {fin[2]} launches (optimize_local "
+          f"sync-free), submaps moved ≤ {moved[0]:.4f} m / {moved[1]:.4f} "
+          f"rad; trajectory {tuple(traj.shape)} in {tj[0]:.1f} ms "
+          f"profiled, {tj[2]} launches")
+    assert not hm.mapping_enabled
+    assert stamps.shape == (30,) and traj.shape == (30, 7)
+    assert bool(torch.isfinite(traj).all())
+    assert stamps.cpu().tolist() == [float(t) for t in range(30)]
+
+    layers3 = [sm.get_layer(col.layers, k) for k in range(3)]
+    poses3 = col.T_odom_submap[:3].clone()
+    (p3, info3), w3 = _fenced_ms(lambda: go.optimize_two_phase(
+        poses3, st.constraints, cfg.spec, layers3))
+    l3 = profiled(lambda: go.optimize_two_phase(
+        poses3, st.constraints, cfg.spec, layers3))[2]
+    tr3 = info3["phase2_cost_trace"]
+    print(f"[11] optimize_two_phase over the 3 stock layers "
+          f"({info3['n_registration_pairs']} pairs, R = "
+          f"{reg.RegistrationConfig().max_reg_blocks}, "
+          f"{reg.RegistrationConfig().max_points} points each): {w3:.1f} ms, "
+          f"{l3} launches, trace {[round(c, 4) for c in tr3]}")
+    assert info3["n_registration_pairs"] >= 1
+    for a, b in zip(tr3[:-1], tr3[1:]):
+        assert b <= a * (1 + 1e-5), tr3
+    assert bool(torch.isfinite(p3).all())
+
+    T01 = geo.relative(T_true[0], T_true[1])
+    chk, wc = _fenced_ms(lambda: go.check_loop_closure_candidates(
+        cfg.spec, layers3, [(0, 1, T01)]))
+    lc = profiled(lambda: go.check_loop_closure_candidates(
+        cfg.spec, layers3, [(0, 1, T01)]))[2]
+    print(f"[11] check_loop_closure_candidates (0, 1): {chk[0]} in "
+          f"{wc:.1f} ms, {lc} launches")
+    assert chk[0]["n_inliers"] > 0 and np.isfinite(chk[0]["rms"])
+
+    # test_registration.py's perturbation. At the stock spec it lies
+    # beyond register_pair's basin: the reference itself (JAX, CPU, on
+    # these layers) walks 0.096 → 0.594 while its cost falls (ROADMAP
+    # queue 3), so the pose error is printed, not gated. Its end lies in
+    # a flat false minimum, where the card's and the CPU's f32 runs part
+    # by ~1e-2; the card is held to the CPU instead on the normal
+    # equations at the start (1e-4 of their max, n_valid exact).
+    T_init = geo.compose(T01, geo.se3_exp(torch.tensor(
+        [0.02, -0.015, 0.03, 0.06, -0.04, 0.05], device=device)))
+    rp, wr = _fenced_ms(lambda: no_sync(lambda: reg.register_pair(
+        cfg.spec, layers3[0], layers3[1], T_init)))
+    lr = profiled(lambda: reg.register_pair(cfg.spec, layers3[0],
+                                            layers3[1], T_init))[2]
+    e0 = float(geo.se3_log(geo.relative(T_init, T01)).norm())
+    e1 = float(geo.se3_log(geo.relative(rp.T_A_B, T01)).norm())
+    rcfg0 = reg.RegistrationConfig()
+    eqs = []
+    for la, lb in (layers3[:2], [interop.layer_from_numpy(
+            interop.layer_to_numpy(l), torch.device("cpu"))
+            for l in layers3[:2]]):
+        cache = reg.surface_point_cache(cfg.spec, la, rcfg0)
+        eqs.append(reg.registration_normal_eq(
+            cfg.spec, lb, *cache, geo.identity(la.sdf.device),
+            T_init.to(la.sdf.device), rcfg0.huber_delta))
+    (Hg, bg, _, ng), (Hc, bc, _, nc) = eqs
+    dH = float((Hg.cpu() - Hc).abs().max() / Hc.abs().max())
+    db = float((bg.cpu() - bc).abs().max() / bc.abs().max())
+    print(f"[11] ({time.perf_counter() - t_start:.1f} s so far) "
+          f"register_pair(0, 1) at the stock spec (sync-free): cost "
+          f"{float(rp.initial_cost):.4f} → {float(rp.cost):.4f}, "
+          f"{int(rp.n_inliers)} inliers, pose error {e0:.4f} → {e1:.4f} "
+          f"(the reference's own outcome), {wr:.1f} ms, {lr} launches; "
+          f"normal equations at the start, card vs CPU: H {dH:.1e}, b "
+          f"{db:.1e} of their max, n_valid {int(ng)} / {int(nc)}")
+    assert float(rp.cost) < float(rp.initial_cost)
+    assert int(rp.n_inliers) > 200
+    assert int(ng) == int(nc) > 200 and dH <= 1e-4 and db <= 1e-4
+    del eqs
+    del layers3
+
+    # ---- (c) the card's solve ≡ the CPU's, 8 submaps ----
+    res = {}
+    for dev in (device, torch.device("cpu")):
+        pr = bm.solve_benchmark_problem(8, device=dev)
+        res[dev.type] = go.optimize_two_phase(
+            pr[0], pr[1], pr[3], pr[2], reg_cfg=pr[4], solver_cfg=pr[5],
+            registration_weight=30.0, reg_iterations=6, fixed=pr[6])
+    (pg_, ig), (pc, ic) = res["cuda"], res["cpu"]
+    dt, dr = _pose_errors(pg_.cpu(), pc)
+    tg, tc = np.array(ig["phase2_cost_trace"]), np.array(
+        ic["phase2_cost_trace"])
+    rel = float(np.abs(tg - tc).max() / np.abs(tc).max())
+    print(f"[11] ({time.perf_counter() - t_start:.1f} s) 8 submaps, "
+          f"card vs CPU: {ig['n_registration_pairs']} / "
+          f"{ic['n_registration_pairs']} pairs, poses ≤ {dt:.2e} m / "
+          f"{dr:.2e} rad, trace rel {rel:.2e}")
+    assert ig["n_registration_pairs"] == ic["n_registration_pairs"]
+    assert dt <= 1e-4 and dr <= 1e-4 and rel <= 1e-4, (dt, dr, rel)
+    return out
+
+
 def main() -> None:
     from coxgraph_tpu_torch import _build, runtime
     from coxgraph_tpu_torch.eval import benchmarks as bm
@@ -998,7 +1278,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 5. real state size --------------------------------------------
-    phase_state_size(device, depths, colors, traj)
+    hm = phase_state_size(device, depths, colors, traj)
+
+    # ---- 11. the solve half (on phase 5's mapper) -------------------------
+    phase_solve(device, ident, hm)
+    del hm
     torch.cuda.empty_cache()
 
     # ---- 6b. end-to-end benchmark ---------------------------------------

@@ -25,8 +25,12 @@ _EPS = 1e-8
 
 
 def identity(device, dtype=torch.float32) -> Tensor:
-    """The identity transform as a (7,) tensor on ``device``."""
-    return torch.tensor([1.0, 0, 0, 0, 0, 0, 0], dtype=dtype, device=device)
+    """The identity transform as a (7,) tensor on ``device``, built there
+    by fills (a tensor from a host list, or an item assignment, would be
+    a blocking copy)."""
+    T = torch.zeros(7, dtype=dtype, device=device)
+    T[:1].fill_(1.0)
+    return T
 
 
 def make(q: Tensor, t: Tensor) -> Tensor:
@@ -237,6 +241,80 @@ def se3_log(T: Tensor) -> Tensor:
     return torch.cat([w, v], dim=-1)
 
 
+def to_matrix(T: Tensor) -> Tensor:
+    """(...,7) → homogeneous (...,4,4)."""
+    R = quat_to_matrix(rotation(T))
+    t = translation(T)[..., :, None]
+    top = torch.cat([R, t], dim=-1)
+    bottom = torch.zeros(T.shape[:-1] + (1, 4), dtype=T.dtype,
+                         device=T.device)
+    bottom[..., 3:].fill_(1.0)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def from_matrix(M: Tensor) -> Tensor:
+    return make(matrix_to_quat(M[..., :3, :3]), M[..., :3, 3])
+
+
+# ---------------------------------------------------------------------------
+# 4-DoF (x, y, z, yaw)
+# ---------------------------------------------------------------------------
+
+
+def from_xyzyaw(p: Tensor) -> Tensor:
+    """4-DoF pose (...,4) [x,y,z,yaw] → transform (...,7)."""
+    half = 0.5 * p[..., 3]
+    zero = torch.zeros_like(half)
+    q = torch.stack([torch.cos(half), zero, zero, torch.sin(half)], dim=-1)
+    return make(q, p[..., :3])
+
+
+def to_xyzyaw(T: Tensor) -> Tensor:
+    """Project a transform to 4-DoF [x,y,z,yaw] (drops roll/pitch)."""
+    q = rotation(T)
+    yaw = torch.atan2(
+        2.0 * (q[..., 0] * q[..., 3] + q[..., 1] * q[..., 2]),
+        1.0 - 2.0 * (q[..., 2] ** 2 + q[..., 3] ** 2))
+    return torch.cat([translation(T), yaw[..., None]], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Interpolation & pose histories
+# ---------------------------------------------------------------------------
+
+
+def interpolate(Ta: Tensor, Tb: Tensor, alpha) -> Tensor:
+    """Componentwise interpolation: lerp translation, slerp rotation
+    (nlerp where the quaternions are nearly parallel, sin θ < 1e-5)."""
+    alpha = torch.as_tensor(alpha, dtype=Ta.dtype, device=Ta.device)[
+        ..., None]
+    qa, qb = rotation(Ta), rotation(Tb)
+    dot = torch.sum(qa * qb, dim=-1, keepdim=True)
+    qb = torch.where(dot < 0, -qb, qb)
+    dot = torch.abs(dot)
+    theta = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    near = sin_theta < 1e-5
+    den = torch.clamp(sin_theta, min=_EPS)
+    wa = torch.where(near, 1.0 - alpha,
+                     torch.sin((1.0 - alpha) * theta) / den)
+    wb = torch.where(near, alpha, torch.sin(alpha * theta) / den)
+    q = quat_normalize(wa * qa + wb * qb)
+    t = (1.0 - alpha) * translation(Ta) + alpha * translation(Tb)
+    return make(q, t)
+
+
+def lookup_pose(stamps: Tensor, poses: Tensor, t) -> Tensor:
+    """Interpolated pose at time t from a timestamped history: stamps
+    (N,) sorted, poses (N,7); t clamped to [stamps[0], stamps[-1]]."""
+    t = torch.as_tensor(t, dtype=stamps.dtype, device=stamps.device)
+    idx = torch.clamp(torch.searchsorted(stamps, t, right=True), 1,
+                      stamps.shape[0] - 1)
+    t0, t1 = stamps[idx - 1], stamps[idx]
+    alpha = torch.clamp((t - t0) / torch.clamp(t1 - t0, min=_EPS), 0.0, 1.0)
+    return interpolate(poses[idx - 1], poses[idx], alpha)
+
+
 # ---------------------------------------------------------------------------
 # NumPy twins for host-side control code
 # ---------------------------------------------------------------------------
@@ -259,6 +337,11 @@ def _np_quat_rotate(q, v):
     uv = np.cross(qv, v)
     uuv = np.cross(qv, uv)
     return v + 2.0 * (qw * uv + uuv)
+
+
+def identity_np(dtype=None):
+    """NumPy twin of identity()."""
+    return np.array([1.0, 0, 0, 0, 0, 0, 0], dtype or np.float32)
 
 
 def compose_np(a, b):
@@ -289,3 +372,27 @@ def transform_points_np(T, p):
     T = np.asarray(T)
     p = np.asarray(p)
     return _np_quat_rotate(T[None, :4], p) + T[None, 4:7]
+
+
+def lookup_pose_np(stamps, poses, t: float):
+    """NumPy twin of lookup_pose() for host-side bookkeeping (one time
+    ``t``) → (7,) float32."""
+    stamps = np.asarray(stamps)
+    poses = np.asarray(poses)
+    idx = int(np.clip(np.searchsorted(stamps, t, side="right"), 1,
+                      len(stamps) - 1))
+    t0, t1 = stamps[idx - 1], stamps[idx]
+    a = float(np.clip((t - t0) / max(t1 - t0, 1e-9), 0.0, 1.0))
+    qa, qb = poses[idx - 1, :4], poses[idx, :4]
+    if np.dot(qa, qb) < 0:
+        qb = -qb
+    dot = np.clip(abs(np.dot(qa, qb)), -1.0, 1.0)
+    theta = np.arccos(dot)
+    if np.sin(theta) < 1e-5:
+        q = (1 - a) * qa + a * qb
+    else:
+        q = (np.sin((1 - a) * theta) * qa + np.sin(a * theta) * qb) \
+            / np.sin(theta)
+    q = q / max(np.linalg.norm(q), 1e-9)
+    tr = (1 - a) * poses[idx - 1, 4:] + a * poses[idx, 4:]
+    return np.concatenate([q, tr]).astype(np.float32)

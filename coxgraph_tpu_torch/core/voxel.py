@@ -270,14 +270,20 @@ def shift(v: Tensor, off) -> Tensor:
     return torch.stack([v[..., a] + off[a] for a in range(3)], dim=-1)
 
 
-def trilinear_corners(spec: VoxelGridSpec, p: Tensor):
-    """Trilinear setup at world points p (...,3): voxel centres sit at
-    (v + 0.5)·s, so the base voxel is floor(p/s − 0.5) → (base (...,3)
-    int32, frac (...,3), [(corner offset (dx, dy, dz), weight (...,))] × 8
-    in the reference's corner order)."""
+def trilinear_base(spec: VoxelGridSpec, p: Tensor):
+    """Voxel centres sit at (v + 0.5)·s, so the trilinear base voxel of
+    world points p (...,3) is floor(p/s − 0.5) → (base (...,3) int32,
+    frac (...,3))."""
     x = p * f32_reciprocal(spec.voxel_size) - 0.5
     v0 = torch.floor(x).to(torch.int32)
-    frac = x - v0.to(x.dtype)
+    return v0, x - v0.to(x.dtype)
+
+
+def trilinear_corners(spec: VoxelGridSpec, p: Tensor):
+    """Trilinear setup at world points p (...,3) → (base voxel (...,3)
+    int32, [(corner offset (dx, dy, dz), weight (...,))] × 8 in the
+    reference's corner order)."""
+    v0, frac = trilinear_base(spec, p)
     f = [frac[..., a] for a in range(3)]
     corners = []
     for dx in (0, 1):
@@ -304,3 +310,21 @@ def sample_tsdf_trilinear(spec: VoxelGridSpec, layer: TsdfLayer, p: Tensor):
         w_acc = w_acc + wt * w
         valid = valid & ok & (w > 0)
     return sdf_acc, w_acc, valid
+
+
+def sample_tsdf_gradient(spec: VoxelGridSpec, layer: TsdfLayer, p: Tensor,
+                         delta: Optional[float] = None):
+    """Central-difference TSDF gradient at world points (...,3) → (grad
+    (...,3), valid): six trilinear samples at p ± delta along each axis
+    (delta defaults to the voxel size)."""
+    d = spec.voxel_size if delta is None else delta
+    grads = []
+    valid = torch.ones(p.shape[:-1], dtype=torch.bool, device=p.device)
+    for axis in range(3):
+        off = [d if a == axis else 0.0 for a in range(3)]
+        sp, _, vp = sample_tsdf_trilinear(spec, layer, shift(p, off))
+        sm, _, vm = sample_tsdf_trilinear(
+            spec, layer, shift(p, [-o for o in off]))
+        grads.append((sp - sm) * f32_reciprocal(2 * d))
+        valid = valid & vp & vm
+    return torch.stack(grads, dim=-1), valid

@@ -10,6 +10,10 @@ mesh extraction, layer merge and serving while streaming.
 
 The loop-detection point is the endurance run's detector
 (``detector_config``) on two robots' 640×480 clips (``two_robot_clip``).
+
+The solve point (``solve_benchmark_problem``, ``solve_benchmark``) is the
+server's two-phase optimize over a 64-submap odometry chain on a wavy
+floor with a z-drift bias: ≥ 100 overlapping registration pairs.
 """
 
 from __future__ import annotations
@@ -216,3 +220,131 @@ def two_robot_clip(device, n_frames: int = 10):
     frames = [[syn.render_depth(scene, intr, T) for T in traj]
               for traj in trajs]
     return intr, trajs, frames
+
+
+# ---------------------------------------------------------------------------
+# Solve-side benchmark: the server's two-phase optimize
+# ---------------------------------------------------------------------------
+
+SOLVE_N = 64
+SOLVE_SPACING = 0.8  # m between consecutive submap origins along x
+
+
+def _wavy_floor_sdf(p):
+    """Egg-crate floor whose wavelength (~1.6 m) matches the submap patch
+    size, so every patch sees full surface curvature."""
+    return p[..., 2] - 0.15 * torch.sin(4.0 * p[..., 0]) \
+        - 0.1 * torch.cos(3.0 * p[..., 1])
+
+
+def solve_benchmark_problem(n: int = SOLVE_N, device=None):
+    """n-submap odometry chain over the wavy floor with a drift bias (the
+    JAX package's problem, the chain drawn from
+    ``np.random.default_rng(7)`` the same way) → (init_poses (n,7),
+    constraints, layers, spec, reg_cfg, solver_cfg, fixed (n,)), the
+    tensors on ``device`` (default: the card). The chain's measurements
+    are composed on the CPU, as the reference composes them."""
+    from .. import runtime
+    from ..core import geometry as geo
+    from ..core import voxel as vx
+    from ..ops import registration as reg
+    from ..solver import pose_graph as pg
+
+    device = runtime.require_cuda() if device is None else device
+    cpu = torch.device("cpu")
+    spec = vx.VoxelGridSpec(voxel_size=0.1, voxels_per_side=8, grid_dim=16,
+                            max_blocks=64, truncation=0.3)
+    reg_cfg = reg.RegistrationConfig(max_points=256, min_weight=0.5)
+    rng = np.random.default_rng(7)
+    true_poses = geo.from_xyzyaw(torch.tensor(
+        [[k * SOLVE_SPACING, 0.0, 0.0, 0.0] for k in range(n)],
+        dtype=torch.float32)).numpy()
+
+    xs, ys, zs = np.arange(-1, 1), np.arange(-2, 2), np.arange(-1, 1)
+    coords = torch.from_numpy(np.stack(np.meshgrid(
+        xs, ys, zs, indexing="ij"), axis=-1).reshape(-1, 3).astype(
+        np.int32)).to(device)
+    base = vx.allocate_blocks(spec, vx.create_tsdf_layer(spec, device),
+                              coords)
+    centers = vx.voxel_centers_of_block(spec, base.block_coords).reshape(
+        -1, 3)
+    live = (torch.arange(spec.max_blocks, device=device)
+            < base.num_blocks)[:, None]
+
+    def make_layer(T_world_submap):
+        pw = geo.transform_points(T_world_submap, centers).reshape(
+            spec.max_blocks, -1, 3)
+        sdf = torch.clamp(_wavy_floor_sdf(pw), -spec.truncation,
+                          spec.truncation)
+        ramp = torch.clamp(1.0 - torch.abs(sdf) / spec.truncation,
+                           min=0.0)
+        weight = torch.where(live & (torch.abs(sdf) < spec.truncation),
+                             ramp, 0.0)
+        return dataclasses.replace(
+            base, sdf=sdf, weight=weight, color=base.color.clone(),
+            block_index=base.block_index.clone(),
+            block_coords=base.block_coords.clone(),
+            num_blocks=base.num_blocks.clone())
+
+    true_dev = torch.from_numpy(true_poses).to(device)
+    layers = [make_layer(true_dev[k]) for k in range(n)]
+    cons = pg.RelPoseConstraints.empty(2 * n, cpu)
+    info = 20.0 * torch.eye(6)
+    init = [true_poses[0]]
+    for k in range(n - 1):
+        T_rel_true = geo.relative_np(true_poses[k], true_poses[k + 1])
+        noise = rng.normal(0, 0.004, 6)
+        noise[5] += 0.008  # z drift bias (tangent = rx ry rz x y z)
+        T_rel_meas = geo.compose(
+            torch.from_numpy(T_rel_true),
+            geo.se3_exp(torch.from_numpy(noise.astype(np.float32))))
+        cons = cons.add(k, k + 1, T_rel_meas, info)
+        init.append(geo.compose_np(init[-1], T_rel_meas.numpy()))
+    cons = pg.RelPoseConstraints(**{
+        f.name: getattr(cons, f.name).to(device)
+        for f in dataclasses.fields(cons)})
+    fixed = torch.arange(n, device=device) == 0
+    return (torch.from_numpy(np.stack(init).astype(np.float32)).to(device),
+            cons, layers, spec, reg_cfg, pg.SolverConfig(iterations=10),
+            fixed)
+
+
+def solve_benchmark(reg_iterations: int = 6, repeats: int = 3,
+                    device=None, problem=None) -> dict:
+    """Warm-then-timed two-phase optimize on ``device`` (default: the
+    card) → {"solve_s" (the first timed call's wall), "solve_best_s"
+    (best of ``repeats``), "pairs", "submaps"}. Each call ends in
+    ``torch.cuda.synchronize()`` and a readback of the poses. The
+    per-submap surface-point caches and the stacked field are held
+    across calls, as the server holds them across optimizes.
+    ``problem``: a ``solve_benchmark_problem`` result to reuse."""
+    from ..server import global_opt
+
+    init, cons, layers, spec, reg_cfg, solver_cfg, fixed = (
+        problem if problem is not None
+        else solve_benchmark_problem(device=device))
+    caches = [None] * len(layers)
+    stack_cache: dict = {}
+
+    def solve():
+        return global_opt.optimize_two_phase(
+            init, cons, spec, layers, reg_cfg=reg_cfg,
+            solver_cfg=solver_cfg, registration_weight=30.0,
+            reg_iterations=reg_iterations, fixed=fixed,
+            reg_caches=caches, stack_cache=stack_cache)
+
+    def fenced():
+        poses, info = solve()
+        _fence(poses.device)
+        float(poses.sum())
+        return info
+
+    fenced()                                    # warm caches
+    walls = []
+    for _ in range(max(1, repeats)):
+        t0 = time.perf_counter()
+        info = fenced()
+        walls.append(time.perf_counter() - t0)
+    return {"solve_s": walls[0], "solve_best_s": min(walls),
+            "pairs": int(info["n_registration_pairs"]),
+            "submaps": len(layers)}

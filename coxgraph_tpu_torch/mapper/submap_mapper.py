@@ -19,7 +19,12 @@ The serving half: ``HostMapper.live_mesh`` / ``live_mesh_async`` /
 ``live_mesh_odom`` (incremental meshing from ``mesh_dirty``) and
 ``merged_layer`` (all submaps fused into one odom-frame layer).
 
-Not ported yet: ``optimize_local``, ``step_points`` and ``finish_map``.
+The local pose graph: ``add_loop_closure``, ``optimize_local`` (LM over
+the submap poses, IN PLACE), ``HostMapper.finish_map`` and
+``trajectory`` (the submaps' histories re-posed by the optimized submap
+poses).
+
+Not ported yet: ``step_points`` (the pointcloud integrator).
 """
 
 from __future__ import annotations
@@ -47,8 +52,7 @@ Tensor = torch.Tensor
 @dataclasses.dataclass(frozen=True)
 class MapperConfig:
     """Static mapper parameters (the JAX package's fields and defaults;
-    its ``local_solver`` and ``point_integrator`` belong to paths not
-    ported yet)."""
+    its ``point_integrator`` belongs to a path not ported yet)."""
 
     spec: vx.VoxelGridSpec = vx.VoxelGridSpec()
     integrator: tsdf_ops.TsdfIntegratorConfig = \
@@ -59,6 +63,10 @@ class MapperConfig:
     submap_interval: float = 10.0     # s
     max_constraints: int = 256
     odom_sqrt_info: float = 20.0      # odometry constraint confidence
+    # solver settings of the LOCAL pose-graph solve (optimize_local);
+    # None = pg.SolverConfig(); set huber_delta > 0 against outlier loop
+    # closures; an explicit solver_cfg argument overrides
+    local_solver: Optional[pg.SolverConfig] = None
     # absolute height priors on submap poses (odom z at submap creation);
     # 0 = off
     height_prior_stddev: float = 0.0
@@ -525,6 +533,17 @@ class HostMapper:
             self._schedule_stats_check()
         return len(starts)
 
+    def finish_map(self, solver_cfg: Optional[pg.SolverConfig] = None
+                   ) -> None:
+        """Final local PGO, then stop integrating (the reference's
+        finish_map service)."""
+        self._consume_pending_stats()
+        if self.n_submaps > 1:
+            optimize_local(self.cfg, self.state, solver_cfg)
+            self.refresh_pose_mirror()
+        self.union_saturation()
+        self.mapping_enabled = False
+
     # -- live meshing -----------------------------------------------------
 
     _MESHER_KWARGS = ("chunk", "min_weight", "max_tris", "quantize")
@@ -622,6 +641,59 @@ class HostMapper:
             z = np.zeros((0, 3, 3), np.float32)
             return z, z.copy()
         return np.concatenate(vs), np.concatenate(cs)
+
+
+def optimize_local(cfg: MapperConfig, state: MapperState,
+                   solver_cfg: Optional[pg.SolverConfig] = None
+                   ) -> MapperState:
+    """Run the local pose graph over the submap poses (odometry chain,
+    added loop closures, and the height priors when
+    ``cfg.height_prior_stddev > 0``) and write the optimized poses IN
+    PLACE. ``solver_cfg`` defaults to ``cfg.local_solver``, then to
+    ``pg.SolverConfig()``. No device-to-host read."""
+    if solver_cfg is None:
+        solver_cfg = cfg.local_solver or pg.SolverConfig()
+    col = state.collection
+    res = pg.optimize(col.T_odom_submap, state.constraints, solver_cfg,
+                      heights=(state.heights
+                               if cfg.height_prior_stddev > 0 else None))
+    col.T_odom_submap.copy_(res.poses)
+    return state
+
+
+def add_loop_closure(state: MapperState, i, j, T_i_j: Tensor,
+                     sqrt_info: Optional[Tensor] = None) -> MapperState:
+    """Add an intra-robot loop-closure constraint between submaps i and
+    j to the local pose graph (replaces ``state.constraints``)."""
+    state.constraints = state.constraints.add(i, j, T_i_j, sqrt_info)
+    return state
+
+
+def _composed_histories(T_odom_submap: Tensor, hist_poses: Tensor
+                        ) -> Tensor:
+    """(S,7)×(S,H,7) → (S,H,7) odom-frame poses in one batched compose."""
+    return geo.compose(T_odom_submap[:, None, :], hist_poses)
+
+
+def trajectory(col: SubmapCollection) -> Tuple[Tensor, Tensor]:
+    """Full odom-frame trajectory (stamps (N,), poses (N,7)) on the
+    collection's device: the per-submap histories re-posed by the
+    (possibly optimized) submap poses, in submap order. One read of the
+    history counts."""
+    device = col.hist_stamps.device
+    counts = torch.cat([col.hist_count,
+                        col.num_submaps.reshape(1)]).cpu().numpy()
+    n = int(counts[-1])
+    keep = np.zeros(col.hist_stamps.shape, bool)
+    for k in range(n):
+        keep[k, :counts[k]] = True
+    if not keep.any():
+        return (torch.zeros((0,), device=device),
+                torch.zeros((0, 7), device=device))
+    sel = torch.from_numpy(np.flatnonzero(keep)).to(device)
+    poses = _composed_histories(col.T_odom_submap, col.hist_poses)
+    return (col.hist_stamps.reshape(-1).index_select(0, sel),
+            poses.reshape(-1, 7).index_select(0, sel))
 
 
 def merged_layer(cfg: MapperConfig, col: SubmapCollection,

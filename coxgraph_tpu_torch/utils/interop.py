@@ -9,8 +9,11 @@ and returns its leaves unconverted; the caller turns JAX arrays into numpy
 
 ``config_from`` copies any object carrying the JAX configs' attribute
 names (MapperConfig, VoxelGridSpec, TsdfIntegratorConfig,
-PinholeIntrinsics, FeatureConfig, LoopDetectorConfig, EsdfConfig) into
-the port's frozen dataclasses.
+PinholeIntrinsics, FeatureConfig, LoopDetectorConfig, EsdfConfig,
+SolverConfig, RegistrationConfig) into the port's frozen dataclasses.
+
+The solve's inputs and outputs cross too: constraint and height-prior
+pools on their own, lists of layers, and ``SolveResult``.
 
 Keypoints and a loop detector's database cross with their descriptors as
 the uint32 words of the JAX package; in the port they are int32 tensors
@@ -20,7 +23,7 @@ holding the same bit patterns.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +34,7 @@ from ..frontends import synthetic as syn
 from ..mapper import submap_mapper as sm
 from ..ops import esdf as esdf_ops
 from ..ops import features as ft
+from ..ops import registration as reg
 from ..ops import tsdf as tsdf_ops
 from ..solver import pose_graph as pg
 
@@ -98,6 +102,45 @@ def mapper_state_from_numpy(arrays: Dict[str, np.ndarray],
 
 def mapper_state_to_numpy(state: sm.MapperState) -> Dict[str, np.ndarray]:
     return _to_numpy(state)
+
+
+def constraints_from_numpy(arrays: Dict[str, np.ndarray],
+                           device) -> pg.RelPoseConstraints:
+    """{'i', 'j', 'T_meas', 'sqrt_info', 'valid', 'count'} → the port's
+    RelPoseConstraints pool on ``device``."""
+    return _build(pg.RelPoseConstraints, arrays, device)
+
+
+def heights_from_numpy(arrays: Dict[str, np.ndarray],
+                       device) -> pg.HeightConstraints:
+    """{'i', 'height', 'info', 'valid', 'count'} → the port's
+    HeightConstraints pool on ``device``."""
+    return _build(pg.HeightConstraints, arrays, device)
+
+
+def pool_to_numpy(pool) -> Dict[str, np.ndarray]:
+    """A constraint or height-prior pool (the port's) → {field: numpy}."""
+    return _to_numpy(pool)
+
+
+def layers_from_numpy(arrays: Sequence[Dict[str, np.ndarray]],
+                      device) -> List[vx.TsdfLayer]:
+    """A list of per-layer dicts (``layer_from_numpy``'s) → the port's
+    layers on ``device``."""
+    return [layer_from_numpy(a, device) for a in arrays]
+
+
+def solve_result_to_numpy(res) -> Dict[str, np.ndarray]:
+    """A SolveResult (the JAX package's or the port's) → {'poses',
+    'cost', 'initial_cost', 'iterations'} as numpy."""
+    return {name: _host(getattr(res, name)) for name in pg.SolveResult._fields}
+
+
+def solve_result_from_numpy(arrays: Dict[str, np.ndarray],
+                            device) -> pg.SolveResult:
+    return pg.SolveResult(**{
+        name: torch.from_numpy(np.array(arrays[name])).to(device)
+        for name in pg.SolveResult._fields})
 
 
 def _host(x) -> np.ndarray:
@@ -182,21 +225,20 @@ def load_detector_state(det: ld.LoopDetector,
 _CONFIGS = {c.__name__: c for c in (
     sm.MapperConfig, vx.VoxelGridSpec, tsdf_ops.TsdfIntegratorConfig,
     syn.PinholeIntrinsics, ft.FeatureConfig, ld.LoopDetectorConfig,
-    esdf_ops.EsdfConfig)}
+    esdf_ops.EsdfConfig, pg.SolverConfig, reg.RegistrationConfig)}
 
 
 def config_from(obj):
     """Copy a config object (matched by class name) into the port's frozen
     dataclass of the same name, recursing into nested configs. Raises
     when the source sets a field the port cannot honour yet (a
-    MapperConfig's ``local_solver`` or ``point_integrator``)."""
+    MapperConfig's ``point_integrator``)."""
     cls = _CONFIGS.get(type(obj).__name__)
     if cls is None:
         raise TypeError(f"no port config for {type(obj).__name__}")
-    for name in ("local_solver", "point_integrator"):
-        if getattr(obj, name, None) is not None:
-            raise ValueError(f"{type(obj).__name__}.{name} is set, but its "
-                             "path is not ported yet")
+    if getattr(obj, "point_integrator", None) is not None:
+        raise ValueError(f"{type(obj).__name__}.point_integrator is set, "
+                         "but its path is not ported yet")
     kw = {}
     for f in dataclasses.fields(cls):
         val = getattr(obj, f.name)

@@ -509,3 +509,163 @@ def test_live_mesh_dropped_finish_on_gpu(gpu):
         hm.state.collection.layers, 0), quantize=False)
     assert v.shape[0] > 0
     assert np.array_equal(v, vf) and np.array_equal(c, cf)
+
+
+# ---------------------------------------------------------------------------
+# The solve half (plain torch on the card): the card's solve against the
+# CPU's on the same inputs, at the CPU parity tests' tolerances; the LM
+# loops with any host sync an error.
+# ---------------------------------------------------------------------------
+
+
+def _no_sync(fn):
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _pose_err(a, b):
+    """(max translation m, max rotation rad) between pose sets (N,7)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    rot = geo.so3_log(geo.rotation(geo.relative(a, b))).norm(dim=-1)
+    return (float((a[..., 4:] - b[..., 4:]).norm(dim=-1).max()),
+            float(rot.max()))
+
+
+def _drifted_chain(device, n=8, seed=0):
+    """A seeded odometry chain with a biased drift, one loop closure
+    n-1 → 0 and height priors, on ``device``."""
+    from coxgraph_tpu_torch.solver import pose_graph as pg
+
+    rng = np.random.default_rng(seed)
+    xi = torch.from_numpy(np.concatenate(
+        [rng.normal(0, 0.2, (n - 1, 3)), rng.normal(0, 0.5, (n - 1, 3))],
+        axis=1).astype(np.float32))
+    rels = geo.se3_exp(xi)
+    gt = [geo.identity("cpu")]
+    for k in range(n - 1):
+        gt.append(geo.compose(gt[-1], rels[k]))
+    gt = torch.stack(gt)
+    drift = geo.se3_exp(torch.tensor([0.0, 0.0, 0.02, 0.05, 0.0, 0.03]))
+    c = pg.RelPoseConstraints.empty(2 * n, "cpu")
+    h = pg.HeightConstraints.empty(n, "cpu")
+    init = [gt[0]]
+    for k in range(n - 1):
+        meas = geo.compose(rels[k], drift)
+        c = c.add(k, k + 1, meas)
+        init.append(geo.compose(init[-1], meas))
+        h = h.add(k + 1, gt[k + 1, 6], 0.1)
+    c = c.add(0, n - 1, geo.relative(gt[0], gt[n - 1]),
+              10.0 * torch.eye(6))
+
+    def on(x):
+        return type(x)(**{f.name: getattr(x, f.name).to(device)
+                          for f in dataclasses.fields(x)})
+
+    return torch.stack(init).to(device), on(c), on(h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "huber", "yaw_only", "heights"])
+def test_pose_graph_on_gpu_matches_cpu(gpu, case):
+    from coxgraph_tpu_torch.solver import pose_graph as pg
+
+    cfg = pg.SolverConfig(iterations=15, huber_delta=0.3 * (case == "huber"),
+                          yaw_only=case == "yaw_only")
+    out = {}
+    for dev in ("cpu", gpu):
+        init, c, h = _drifted_chain(dev)
+        hh = h if case == "heights" else None
+        run = lambda: pg.optimize(init, c, cfg, heights=hh)   # noqa: E731
+        out[str(dev)] = _no_sync(run) if dev == gpu else run()
+    g, cp = out[str(gpu)], out["cpu"]
+    dt, dr = _pose_err(g.poses, cp.poses)
+    assert dt <= 1e-4 and dr <= 1e-4, (dt, dr)
+    assert abs(float(g.cost) - float(cp.cost)) <= 1e-4 * max(
+        float(cp.cost), 1e-6)
+    assert float(cp.cost) < float(cp.initial_cost)
+
+
+def _registration_layers(device):
+    """Two overlapping submaps of the synthetic room (the setting of
+    tests/test_registration.py, 160×120, 0.1 m voxels), integrated on the
+    card, and their CPU copies."""
+    from coxgraph_tpu_torch.utils import interop
+
+    spec = vx.VoxelGridSpec(voxel_size=0.1, voxels_per_side=8, grid_dim=32,
+                            max_blocks=2048, truncation=0.3)
+    icfg = tsdf.TsdfIntegratorConfig(max_touched_blocks=1024)
+    intr = syn.PinholeIntrinsics().scaled(0.25)
+    scene = syn.default_scene(device)
+    traj = syn.orbit_trajectory(8, scene.room_center, radius=2.5,
+                                sweep=np.pi)
+    out = []
+    for lo, hi, anchor in ((0, 5, 0), (3, 8, 4)):
+        layer = vx.create_tsdf_layer(spec, device)
+        for i in range(lo, hi):
+            d, c = syn.render_depth(scene, intr, traj[i])
+            tsdf.integrate_frame(spec, icfg, intr, layer, d, c,
+                                 geo.relative(traj[anchor], traj[i]))
+        out.append((layer, interop.layer_from_numpy(
+            interop.layer_to_numpy(layer), "cpu")))
+    T_true = geo.relative(traj[0], traj[4])
+    return spec, out, T_true
+
+
+@pytest.mark.cuda
+def test_registration_on_gpu_matches_cpu(gpu):
+    from coxgraph_tpu_torch.ops import registration as reg
+
+    spec, ((ga, ca), (gb, cb)), T_true = _registration_layers(gpu)
+    rcfg = reg.RegistrationConfig(max_points=1024, iterations=15)
+    pert = geo.se3_exp(torch.tensor([0.02, -0.015, 0.03, 0.06, -0.04,
+                                     0.05], device=gpu))
+    T_init = geo.compose(T_true, pert)
+    cache = {dev: reg.surface_point_cache(spec, la, rcfg)
+             for dev, la in (("cpu", ca), ("cuda", ga))}
+    (pg_, sg, mg), (pc, sc, mc) = cache["cuda"], cache["cpu"]
+    assert torch.equal(pg_.cpu(), pc) and torch.equal(mg.cpu(), mc)
+    assert float((sg.cpu() - sc).abs().max()) <= 1e-6
+    Tc = T_init.cpu()
+    Hc, bc, cc, nc = reg.registration_normal_eq(
+        spec, cb, *cache["cpu"], geo.identity("cpu"), Tc)
+    Hg, bg, cg, ng = reg.registration_normal_eq(
+        spec, gb, *cache["cuda"], geo.identity(gpu), T_init)
+    assert int(ng) == int(nc) > 100
+    assert float((Hg.cpu() - Hc).abs().max()) <= 1e-4 * float(
+        Hc.abs().max())
+    assert float((bg.cpu() - bc).abs().max()) <= 1e-4 * float(
+        bc.abs().max())
+    rg = _no_sync(lambda: reg.register_pair(spec, ga, gb, T_init, rcfg))
+    rc = reg.register_pair(spec, ca, cb, Tc, rcfg)
+    dt, dr = _pose_err(rg.T_A_B[None], rc.T_A_B[None])
+    assert dt <= 1e-4 and dr <= 1e-4, (dt, dr)
+    assert int(rg.n_inliers) > 200
+    assert float(rg.cost) < float(rg.initial_cost)
+
+
+@pytest.mark.cuda
+def test_two_phase_on_gpu_matches_cpu(gpu):
+    """8 submaps of the bench solve point: poses, pairs and the cost
+    trace; the chunked phase 2 on the card against its fused run."""
+    from coxgraph_tpu_torch.eval import benchmarks as bm
+    from coxgraph_tpu_torch.server import global_opt as go
+
+    out = {}
+    for dev, di in (("cpu", 0), ("cuda", 0), ("cuda", 2)):
+        init, cons, layers, spec, rcfg, scfg, fixed = \
+            bm.solve_benchmark_problem(8, device=torch.device(dev))
+        rcfg = dataclasses.replace(rcfg, phase2_dispatch_iters=di)
+        out[(dev, di)] = go.optimize_two_phase(
+            init, cons, spec, layers, reg_cfg=rcfg, solver_cfg=scfg,
+            registration_weight=30.0, reg_iterations=6, fixed=fixed)
+    pc, ic = out[("cpu", 0)]
+    for key in (("cuda", 0), ("cuda", 2)):
+        pg_, ig = out[key]
+        assert ig["n_registration_pairs"] == ic["n_registration_pairs"]
+        dt, dr = _pose_err(pg_, pc)
+        assert dt <= 1e-4 and dr <= 1e-4, (key, dt, dr)
+        np.testing.assert_allclose(ig["phase2_cost_trace"],
+                                   ic["phase2_cost_trace"], rtol=1e-4)

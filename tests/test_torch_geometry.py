@@ -101,3 +101,58 @@ def test_numpy_twins_match_jax(name):
     np.testing.assert_allclose(getattr(geo, name)(*args),
                                getattr(jgeo, name)(*args), atol=ATOL,
                                rtol=0)
+
+
+# the solve slice's additions: matrices, 4-DoF poses, interpolation and
+# pose-history lookup (stamps exact, poses 1e-6)
+XYZYAW = np.random.default_rng(4).normal(size=(64, 4)).astype(np.float32)
+ALPHA = np.random.default_rng(5).uniform(0, 1, 64).astype(np.float32)
+NEAR = A.copy()                      # nearly parallel pairs: the nlerp path
+NEAR[:, :4] = np.array(jgeo.quat_normalize(jnp.asarray(
+    A[:, :4] + 1e-7 * B[:, :4])))
+
+SOLVE_CASES = [
+    ("to_matrix", jgeo.to_matrix, geo.to_matrix, (A,)),
+    ("from_matrix", jgeo.from_matrix, geo.from_matrix,
+     (np.array(jgeo.to_matrix(jnp.asarray(A))),)),
+    ("from_xyzyaw", jgeo.from_xyzyaw, geo.from_xyzyaw, (XYZYAW,)),
+    ("to_xyzyaw", jgeo.to_xyzyaw, geo.to_xyzyaw, (A,)),
+    ("interpolate", jgeo.interpolate, geo.interpolate, (A, B, ALPHA)),
+    ("interpolate_near", jgeo.interpolate, geo.interpolate,
+     (A, NEAR, ALPHA)),
+]
+
+
+@pytest.mark.parametrize("name,jfn,pfn,args", SOLVE_CASES,
+                         ids=[c[0] for c in SOLVE_CASES])
+def test_solve_op_matches_jax(name, jfn, pfn, args):
+    want = np.asarray(jfn(*(jnp.asarray(a) for a in args)))
+    got = pfn(*(_t(a) for a in args)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+STAMPS = np.cumsum(np.random.default_rng(6).uniform(0.05, 0.2, 64)).astype(
+    np.float32)
+# before the first stamp, on stamps, between them and past the last
+TIMES = np.concatenate([[STAMPS[0] - 1.0], STAMPS[[0, 5, 63]],
+                        0.5 * (STAMPS[10:13] + STAMPS[11:14]),
+                        [STAMPS[-1] + 2.0]]).astype(np.float32)
+
+
+@pytest.mark.parametrize("t", list(TIMES), ids=range(len(TIMES)))
+def test_lookup_pose_matches_jax(t):
+    want = np.asarray(jgeo.lookup_pose(jnp.asarray(STAMPS), jnp.asarray(A),
+                                       jnp.asarray(t)))
+    got = geo.lookup_pose(_t(STAMPS), _t(A), torch.tensor(t)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    np.testing.assert_allclose(geo.lookup_pose_np(STAMPS, A, float(t)),
+                               jgeo.lookup_pose_np(STAMPS, A, float(t)),
+                               atol=ATOL, rtol=0)
+
+
+def test_identity_np_matches_jax():
+    for dtype in (None, np.float64):
+        a, b = geo.identity_np(dtype), jgeo.identity_np(dtype)
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)

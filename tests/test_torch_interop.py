@@ -97,11 +97,65 @@ def test_config_from_copies_every_field():
 
 
 def test_config_from_refuses_unported_fields():
+    """The pointcloud integrator is not ported: a MapperConfig that sets
+    it, or its config itself, is refused. (The local solver is ported:
+    see test_solve_state_and_configs_cross_exactly.)"""
+    from coxgraph_tpu.ops import points as jpoints
+
     with pytest.raises(ValueError):
         interop.config_from(dataclasses.replace(
-            JCFG, local_solver=jpg.SolverConfig()))
+            JCFG, point_integrator=jpoints.PointIntegratorConfig()))
     with pytest.raises(TypeError):
-        interop.config_from(jpg.SolverConfig())
+        interop.config_from(jpoints.PointIntegratorConfig())
+
+
+def test_solve_state_and_configs_cross_exactly():
+    """Constraint and height-prior pools on their own, a list of layers,
+    a SolveResult and the solve's configs carry across unchanged."""
+    from coxgraph_tpu.ops import registration as jreg
+    from coxgraph_tpu_torch.ops import registration as reg
+    from coxgraph_tpu_torch.solver import pose_graph as pg
+
+    state = _jax_state()
+    cons = interop.constraints_from_numpy(
+        _jax_numpy(state.constraints), CPU)
+    hts = interop.heights_from_numpy(_jax_numpy(state.heights), CPU)
+    assert isinstance(cons, pg.RelPoseConstraints)
+    assert isinstance(hts, pg.HeightConstraints)
+    for pool, jpool in ((cons, state.constraints), (hts, state.heights)):
+        got, want = interop.pool_to_numpy(pool), _jax_numpy(jpool)
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert int(cons.count) == 2 and int(hts.count) == 3
+
+    jlayers = [jsm._get_layer(state.collection.layers, k) for k in (0, 1)]
+    layers = interop.layers_from_numpy([_jax_numpy(l) for l in jlayers], CPU)
+    for layer, jl in zip(layers, jlayers):
+        got, want = interop.layer_to_numpy(layer), _jax_numpy(jl)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+    jres = jpg.optimize(state.collection.T_odom_submap, state.constraints,
+                        jpg.SolverConfig(iterations=2))
+    res = interop.solve_result_from_numpy(
+        interop.solve_result_to_numpy(jres), CPU)
+    assert isinstance(res, pg.SolveResult)
+    for k, v in interop.solve_result_to_numpy(res).items():
+        np.testing.assert_array_equal(v, np.asarray(getattr(jres, k)))
+
+    for jc in (jpg.SolverConfig(iterations=3, huber_delta=0.2,
+                                yaw_only=True),
+               jreg.RegistrationConfig(max_points=64,
+                                       phase2_dispatch_iters=2)):
+        c = interop.config_from(jc)
+        assert dataclasses.asdict(c) == dataclasses.asdict(jc)
+    assert interop.config_from(jpg.SolverConfig()) == pg.SolverConfig()
+    assert interop.config_from(jreg.RegistrationConfig()) == \
+        reg.RegistrationConfig()
+    cfg = interop.config_from(dataclasses.replace(
+        JCFG, local_solver=jpg.SolverConfig(huber_delta=0.3)))
+    assert cfg.local_solver == pg.SolverConfig(huber_delta=0.3)
 
 
 def test_port_never_imports_jax():

@@ -20,11 +20,14 @@ import numpy as np
 import pytest
 import torch
 
+from coxgraph_tpu.core import geometry as jgeo
 from coxgraph_tpu.core import voxel as jvx
 from coxgraph_tpu.frontends import synthetic as jsyn
 from coxgraph_tpu.mapper import submap_mapper as jsm
 from coxgraph_tpu.ops import tsdf as jtsdf
+from coxgraph_tpu.solver import pose_graph as jpg
 from coxgraph_tpu_torch import runtime
+from coxgraph_tpu_torch.core import geometry as geo
 from coxgraph_tpu_torch.mapper import submap_mapper as sm
 from coxgraph_tpu_torch.utils import interop
 
@@ -237,3 +240,65 @@ def test_host_mapper_needs_state_or_device(monkeypatch):
                         lambda: asked.append(1) or CPU)
     assert sm.HostMapper(CFG).device == CPU and asked == [1]
     assert sm.HostMapper(CFG, device=CPU).device == CPU and asked == [1]
+
+
+def _poses_close(a, b, tol):
+    a, b = torch.as_tensor(a).double(), torch.tensor(np.asarray(b)).double()
+    rot = geo.so3_log(geo.rotation(geo.relative(a, b))).norm(dim=-1)
+    assert float((a[..., 4:] - b[..., 4:]).norm(dim=-1).max()) <= tol
+    assert float(rot.max()) <= tol
+
+
+@pytest.mark.parametrize("variant", ["plain", "heights_huber"])
+def test_loop_closure_finish_map_and_trajectory_match_jax(variant):
+    """add_loop_closure, HostMapper.finish_map (optimize_local with the
+    config's local solver, height priors on or off) and trajectory on a
+    JAX mapper state carried across: constraint pools exact (T_meas
+    1e-6), trajectory stamps exact and poses 1e-6 on identical states,
+    optimized submap poses 1e-4 (m and rad)."""
+    extra = {} if variant == "plain" else dict(
+        height_prior_stddev=0.05,
+        local_solver=jpg.SolverConfig(iterations=10, huber_delta=0.5))
+    jcfg = dataclasses.replace(JCFG, **extra)
+    cfg = interop.config_from(jcfg)
+    depths, colors, traj = _frames(8)
+    jm = jsm.HostMapper(jcfg)
+    jm.step_batch(depths, colors, traj, np.arange(8) * 0.1)
+    pm = sm.HostMapper(cfg, state=interop.mapper_state_from_numpy(
+        _jax_numpy(jm.state), CPU))
+    assert pm.n_submaps == jm.n_submaps == 3
+
+    for jcol, pcol in ((jm.state.collection, pm.state.collection),):
+        js, jp = jsm.trajectory(jcol)
+        ps, pp = sm.trajectory(pcol)
+        np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+        np.testing.assert_allclose(pp.numpy(), np.asarray(jp), atol=1e-6,
+                                   rtol=0)
+        assert ps.shape == (8,)
+
+    T = np.asarray(jm.state.collection.T_odom_submap)
+    T_02 = jgeo.compose(jgeo.relative(T[0], T[2]), jgeo.se3_exp(
+        jnp.array([0.02, -0.01, 0.03, 0.1, -0.05, 0.04])))
+    jm.state = jsm.add_loop_closure(jm.state, 0, 2, T_02,
+                                    5.0 * jnp.eye(6))
+    sm.add_loop_closure(pm.state, 0, 2, torch.from_numpy(np.array(T_02)),
+                        5.0 * torch.eye(6))
+    _assert_state_matches(jm.state, pm.state)
+
+    jm.finish_map()
+    pm.finish_map()
+    assert not pm.mapping_enabled and not jm.mapping_enabled
+    _poses_close(pm.state.collection.T_odom_submap,
+                 jm.state.collection.T_odom_submap, 1e-4)
+    moved = np.abs(np.asarray(jm.state.collection.T_odom_submap)[:3]
+                   - T[:3]).max()
+    assert moved > 1e-3
+    js, jp = jsm.trajectory(jm.state.collection)
+    ps, pp = sm.trajectory(pm.state.collection)
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    _poses_close(pp, jp, 1e-4)
+
+
+def test_trajectory_of_an_empty_mapper():
+    stamps, poses = sm.trajectory(sm.create_collection(CFG, CPU))
+    assert stamps.shape == (0,) and poses.shape == (0, 7)

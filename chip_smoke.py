@@ -9,9 +9,11 @@ It drives the port's per-robot integration path (HostMapper.step_batch →
 integrate_batch → allocation pass + CUDA block-update kernel K1), its
 multi-robot loop-detection path (LoopDetector → features → the CUDA
 Hamming kernel K2 → RANSAC), its serving path (step_batch, then live
-meshing, ESDF and layer merge, in plain torch) and its solve path (LM
+meshing, ESDF and layer merge, in plain torch), its solve path (LM
 pose graph, dense registration, the two-phase global optimize, in plain
-torch) and fails (nonzero exit, no result line) if anything is wrong:
+torch) and its collaborative server tier (two robots through
+VIOInterface, the loop detector and the fusion server) and fails
+(nonzero exit, no result line) if anything is wrong:
 
   1. device    — require a CUDA GPU; print nvidia-smi's name and power limit
   2. build     — build the kernel library from csrc/ with nvcc (sm_90a);
@@ -91,6 +93,25 @@ torch) and fails (nonzero exit, no result line) if anything is wrong:
                  the CPU's (1e-4 of their max); (c) the
                  card's optimize_two_phase at 8 submaps ≡ the CPU's
                  (poses 1e-4 m / rad, trace 1e-4 relative)
+
+ 12. servers   — the collaborative server tier through the port of
+                 examples/two_robot_demo.py at the demo's own point
+                 (eval.demos.TwoRobotDemo: 2 robots × 40 frames at
+                 160×120, 5 cm voxels, 2,048 blocks × 8 submaps a client,
+                 a 48-submap server with async PGO, the detector at K =
+                 384, the final mesh at 6,144 blocks): the demo's gates
+                 (≥ 1 fusion, no solve error, max ATE < 0.13 m, > 1,000
+                 triangles, surface p90 < 4 voxels); K1 launched once per
+                 integrated frame, K2 at least once; the isolated final
+                 mesh leaves T_G_cli, the submap poses, the constraint
+                 pool and its kinds unchanged; 0 host syncs for a fusion
+                 with the solve off on held submaps; one optimize's syncs,
+                 launches and busy share, one frame's; the server's
+                 optimize on the card ≡ the CPU's (1e-4 m / rad) on
+                 tests/test_server.py's small world without registration,
+                 and with it on that world with the orbits raised 0.3 m
+                 (the level world's registration samples sit on the voxel
+                 lattice; its difference is printed)
 
 The line before the last is the card's nvidia-smi name and power limit,
 the one before it the kernels' JSON record; the last line is
@@ -1201,6 +1222,168 @@ def phase_solve(device, ident, hm):
     return out
 
 
+def _online_graph(server):
+    """Host copies of the server's online graph: T_G_cli, every
+    T_G_submap, the constraint pool and its kinds."""
+    return ({c: T.copy() for c, T in server.T_G_cli.items()},
+            [s.T_G_submap.copy() for s in server.submaps],
+            {k: v.copy() for k, v in server._cons.fields.items()},
+            server._cons.count, list(server.constraint_kinds))
+
+
+def _same_graph(a, b) -> bool:
+    return (a[0].keys() == b[0].keys()
+            and all(np.array_equal(a[0][c], b[0][c]) for c in a[0])
+            and len(a[1]) == len(b[1])
+            and all(np.array_equal(x, y) for x, y in zip(a[1], b[1]))
+            and all(np.array_equal(a[2][k], b[2][k]) for k in a[2])
+            and a[3] == b[3] and a[4] == b[4])
+
+
+def small_world_card_vs_cpu(device, height: float = 0.0, **cfg_kw):
+    """tests/test_server.py's two-client world (orbits raised by
+    ``height``), built by the port on the CPU and carried to the card with
+    utils.interop; two fusions through a server (ServerConfig with
+    ``cfg_kw``) on each → the largest (translation m, rotation rad)
+    difference of T_G_cli and the submap poses."""
+    from coxgraph_tpu_torch.eval import demos
+    from coxgraph_tpu_torch.server import fusion_server as fs
+    from coxgraph_tpu_torch.server.client_interface import InProcessClient
+    from coxgraph_tpu_torch.utils import interop
+
+    trajs, _, cpu_clients = demos.small_two_client_world("cpu", height)
+    cfg, scfg = demos.small_world_configs()
+    scfg = dataclasses.replace(scfg, **cfg_kw)
+    card_clients = [InProcessClient(c.client_id, cfg,
+                                    interop.mapper_state_from(c.state,
+                                                              device))
+                    for c in cpu_clients]
+    servers = [fs.CoxgraphServer(scfg, cpu_clients, "cpu"),
+               fs.CoxgraphServer(scfg, card_clients, device)]
+    for ta, tb in ((3, 3), (6, 5)):
+        for s in servers:
+            assert s.map_fusion(demos.true_fusion(trajs, ta, tb))
+    cpu, card = servers
+    assert card.cli_ser == cpu.cli_ser
+    assert card.constraint_kinds == cpu.constraint_kinds
+    assert not card.optimize_errors and not cpu.optimize_errors
+
+    def stack(s):
+        return torch.from_numpy(np.stack(
+            [s.T_G_cli[c] for c in sorted(s.T_G_cli)]
+            + [m.T_G_submap for m in s.submaps]))
+
+    return _pose_errors(stack(card), stack(cpu))
+
+
+def phase_two_robot(device, ident):
+    """Phase 12: the collaborative server tier through the port of
+    examples/two_robot_demo.py at the demo's own operating point."""
+    from coxgraph_tpu_torch.eval import demos
+    from coxgraph_tpu_torch.frontends import synthetic as syn
+    from coxgraph_tpu_torch.ops import cuda_hamming, cuda_tsdf
+    from coxgraph_tpu_torch.server import fusion_server as fs
+    from coxgraph_tpu_torch.utils.tensorops import upload
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    demo = demos.TwoRobotDemo(device)
+    server = demo.server
+    cuda_tsdf.LAUNCHES = 0
+    cuda_hamming.LAUNCHES = 0
+    res = demo.stream()
+    k1, k2 = cuda_tsdf.LAUNCHES, cuda_hamming.LAUNCHES
+    frames = sum(int(c.state.frame_count) for c in demo.clients)
+    walls = res["solve_walls"]
+    print(f"[12] streamed {res['frames']} frames in {res['stream_s']:.2f} s "
+          f"({res['fps']:.2f} frames/s); {res['fusions']} fusions accepted, "
+          f"{res['solves']} solves, {res['coalesced_solves']} coalesced; "
+          f"{res['server_submaps']} server submaps — {ident}")
+    print(f"[12] solve wall per optimize min / median / max "
+          f"{min(walls or [0]):.4f} / {float(np.median(walls or [0])):.4f} "
+          f"/ {max(walls or [0]):.4f} s; {res['solve_s']:.2f} s of solve, "
+          f"{res['fusion_dispatch_s']:.2f} s charged to the stream, "
+          f"{res['overlap_s']:.2f} s overlapped with streaming "
+          f"(share {res['overlap_share']:.3f}); client-1 frame alignment "
+          f"error rot {res['align_rot']:.4f} rad, trans "
+          f"{res['align_trans']:.4f} m — {ident}")
+    print(f"[12] K1 launches {k1} for {frames} integrated frames, K2 "
+          f"launches {k2}")
+    assert k1 == frames == res["frames"], (k1, frames)
+    assert k2 >= 1, k2
+
+    before = _online_graph(server)
+    res.update(demo.finish())
+    isolated = _same_graph(before, _online_graph(server))
+    print(f"[12] get_final_global_mesh (isolated, 6,144-block merge) "
+          f"{res['final_mesh_s']:.2f} s: {res['triangles']} triangles, "
+          f"surface error p50 {res['surf_p50'] * 100:.2f} cm p90 "
+          f"{res['surf_p90'] * 100:.2f} cm; ATE {res['ate'][0] * 100:.2f} / "
+          f"{res['ate'][1] * 100:.2f} cm; {res['bytes_shipped'] / 1e6:.1f} "
+          f"MB of submaps shipped; online graph unchanged: {isolated} — "
+          f"{ident}")
+    assert res["fusions"] >= 1 and not res["optimize_errors"], res
+    assert max(res["ate"]) < demos.ATE_GATE, res["ate"]
+    assert res["triangles"] > 1000, res["triangles"]
+    assert res["surf_p90"] < demos.SURFACE_GATE * demo.cfg.spec.voxel_size
+    assert isolated, "the isolated final mesh changed the online graph"
+    peak = (torch.cuda.max_memory_allocated() - mem0) / 2**30
+
+    # one more solve on the online graph, no solve in flight: its host
+    # syncs, launches and device busy share
+    _, opt_syncs = count_syncs(server.optimize)
+    o_wall, o_dev, o_launch, *_ = profiled(server.optimize)
+    # one more frame of robot 0 (rendered outside the trace)
+    t = demo.frames * demos.DT
+    T_w = demo.trajs[0][-1]
+    depth, color = syn.render_depth(demo.scene, demo.cfg.intrinsics,
+                                    upload(T_w, device))
+    f_wall, f_dev, f_launch, *_ = profiled(
+        lambda: demo.vios[0].update_pose(demo.odoms[0][-1], t, depth, color))
+    print(f"[12] one optimize: {opt_syncs} host syncs; traced "
+          f"{o_wall:.1f} ms wall, {o_dev:.2f} ms device (busy "
+          f"{o_dev / o_wall:.3f}), {o_launch} launches; one frame through "
+          f"VIOInterface: {f_wall:.2f} ms wall, {f_dev:.3f} ms device (busy "
+          f"{f_dev / f_wall:.3f}), {f_launch} launches; peak device memory "
+          f"{peak:.2f} GiB above the phase's start — {ident}")
+
+    # a fusion with the solve off: the first pulls its two submaps from
+    # the clients, the second is served from the held submaps
+    probe = fs.CoxgraphServer(
+        dataclasses.replace(server.cfg, refuse_interval=0.0,
+                            async_pgo=False), demo.clients, device)
+    probe.control_trigger(False)
+    mf = demo.accepted[0]
+    ok1, pull_syncs = count_syncs(lambda: probe.map_fusion(mf))
+    ok2, fusion_syncs = count_syncs(lambda: probe.map_fusion(mf))
+    print(f"[12] control-off fusion: {pull_syncs} host syncs pulling its "
+          f"submaps, {fusion_syncs} on held submaps")
+    assert ok1 and ok2 and fusion_syncs == 0, (ok1, ok2, fusion_syncs)
+    del probe, demo, server
+    torch.cuda.empty_cache()
+
+    # the server's optimize, card vs CPU, on tests/test_server.py's world:
+    # its level orbits put registration samples on the voxel lattice, so
+    # the full solve is held without registration, and with it on the
+    # same world with the orbits raised 0.3 m; the level full solve's
+    # difference is printed (ROADMAP queue 3)
+    errs = {"level, registration weight 0":
+            small_world_card_vs_cpu(device, registration_weight=0.0),
+            "orbits raised 0.3 m": small_world_card_vs_cpu(device, 0.3),
+            "level (not gated)": small_world_card_vs_cpu(device)}
+    print("[12] server optimize, card vs CPU on the small two-client world: "
+          + "; ".join(f"{k} {dt:.3e} m / {dr:.3e} rad"
+                      for k, (dt, dr) in errs.items())
+          + f"; phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    for key in ("level, registration weight 0", "orbits raised 0.3 m"):
+        dt, dr = errs[key]
+        assert dt <= 1e-4 and dr <= 1e-4, (key, dt, dr)
+    return res
+
+
 def main() -> None:
     from coxgraph_tpu_torch import _build, runtime
     from coxgraph_tpu_torch.eval import benchmarks as bm
@@ -1305,6 +1488,10 @@ def main() -> None:
 
     # ---- 9. stock detector state -------------------------------------------
     phase_detector_state(device, ident)
+    torch.cuda.empty_cache()
+
+    # ---- 12. the two-robot server tier -----------------------------------------
+    phase_two_robot(device, ident)
 
     print(json.dumps({"kernels": [{
         "name": "tsdf_update_blocks",

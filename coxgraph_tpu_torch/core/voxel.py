@@ -91,6 +91,15 @@ def create_tsdf_layer(spec: VoxelGridSpec, device,
     )
 
 
+def memory_size_bytes(layer: TsdfLayer) -> int:
+    """Total bytes of the pool tensors (cf. voxblox getMemorySize, the
+    server's bandwidth accounting at coxgraph_server.cpp:281-285). Shapes
+    and dtypes only: no device read."""
+    return sum(x.numel() * x.element_size()
+               for x in (layer.sdf, layer.weight, layer.color,
+                         layer.block_index, layer.block_coords))
+
+
 # ---------------------------------------------------------------------------
 # Coordinate transforms
 # ---------------------------------------------------------------------------

@@ -28,6 +28,7 @@ import torch
 from .. import runtime
 from ..ops import features as ft
 from ..server.fusion_server import MapFusionMsg
+from ..utils.tensorops import upload
 from .synthetic import PinholeIntrinsics
 
 Tensor = torch.Tensor
@@ -155,15 +156,6 @@ def _db_append(db_desc, db_valid, db_pcam, db_hdep, kp: ft.Keypoints,
     _db_append_batch(db_desc, db_valid, db_pcam, db_hdep,
                      ft.Keypoints(*(None if f is None else f[None]
                                     for f in kp)), slot)
-
-
-def _upload(x: np.ndarray, device: torch.device) -> Tensor:
-    """Host array → device tensor without a blocking copy (pinned staging
-    and a non-blocking copy on the card)."""
-    t = torch.from_numpy(np.ascontiguousarray(x))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 class LoopDetector:
@@ -307,13 +299,13 @@ class LoopDetector:
             if elig.any():
                 mc = min(cfg.max_candidates, cfg.max_keyframes)
                 res = _read_results(*_match_and_verify(
-                    *self._pools(), _upload(elig, self.device), kp,
+                    *self._pools(), upload(elig, self.device), kp,
                     cfg.features, mc, cfg.match_chunk,
                     self._generator(generator)))
                 msgs = self._gate_results(client_id, t, *res)
         slot = self._alloc_slot(client_id)
         _db_append(*self._pools(), kp,
-                   _upload(np.array([slot], np.int64), self.device))
+                   upload(np.array([slot], np.int64), self.device))
         self.slots[slot] = Keyframe(client_id=client_id, t=t)
         self.total_keyframes += 1
         return msgs
@@ -376,7 +368,7 @@ class LoopDetector:
                 mc = min(cfg.max_candidates, cfg.max_keyframes)
                 scores, idx, Ts, n_inls, spreads = _read_results(
                     *_match_and_verify_batch(
-                        *self._pools(), _upload(elig, self.device), kps,
+                        *self._pools(), upload(elig, self.device), kps,
                         cfg.features, mc, cfg.match_chunk,
                         self._generator(generator)))
                 for b, (cid, t) in enumerate(meta):
@@ -394,10 +386,10 @@ class LoopDetector:
         # would leave the device's pick to chance
         keep = sorted({s: b for b, s in enumerate(slots)}.values())
         if len(keep) < len(slots):
-            rows = _upload(np.array(keep, np.int64), self.device)
+            rows = upload(np.array(keep, np.int64), self.device)
             kps = ft.Keypoints(*(None if f is None else f[rows]
                                  for f in kps))
             slots = [slots[b] for b in keep]
         _db_append_batch(*self._pools(), kps,
-                         _upload(np.asarray(slots, np.int64), self.device))
+                         upload(np.asarray(slots, np.int64), self.device))
         return msgs

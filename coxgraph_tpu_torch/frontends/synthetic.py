@@ -167,3 +167,39 @@ def orbit_trajectory(n_frames: int, center: Tensor, radius: float = 3.0,
     down = torch.linalg.cross(fwd, right, dim=-1)
     R = torch.stack([right, down, fwd], dim=-1)  # columns = cam axes
     return geo.make(geo.matrix_to_quat(R), eye)
+
+
+def odometry_noise(generator: torch.Generator, n_steps: int,
+                   rot_std: float = 0.002, trans_std: float = 0.005
+                   ) -> Tensor:
+    """Per-step odometry noise (n_steps, 6) [rotation, translation] drawn
+    from ``generator`` on its own device. ``jax.random`` has no torch
+    twin, so the draw is kept apart from ``compose_odometry``: the tests
+    feed the JAX package's draw to that half."""
+    z = torch.randn((n_steps, 6), generator=generator,
+                    device=generator.device)
+    return torch.cat([z[:, :3] * rot_std, z[:, 3:] * trans_std], dim=1)
+
+
+def compose_odometry(poses: Tensor, noise: Tensor) -> Tensor:
+    """Integrate the ground truth's relative motions, each perturbed by
+    ``se3_exp`` of its noise row, from ``poses[0]`` → drifting odometry
+    (n, 7) (the deterministic half of ``noisy_odometry``)."""
+    rels = geo.relative(poses[:-1], poses[1:])
+    noisy = geo.compose(rels, geo.se3_exp(noise.to(poses.dtype)))
+    out = [poses[0]]
+    for k in range(noisy.shape[0]):
+        out.append(geo.compose(out[-1], noisy[k]))
+    return torch.stack(out)
+
+
+def noisy_odometry(generator: torch.Generator, poses: Tensor,
+                   rot_std: float = 0.002, trans_std: float = 0.005
+                   ) -> Tensor:
+    """Integrate ground-truth relative motions with per-step noise →
+    drifting odometry (stand-in for the reference's external VIO
+    frontend). Same model as the JAX package's; the random stream is
+    torch's, so the noise differs draw by draw."""
+    noise = odometry_noise(generator, poses.shape[0] - 1, rot_std,
+                           trans_std)
+    return compose_odometry(poses, noise.to(poses.device))

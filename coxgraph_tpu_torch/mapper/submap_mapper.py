@@ -22,7 +22,8 @@ The serving half: ``HostMapper.live_mesh`` / ``live_mesh_async`` /
 The local pose graph: ``add_loop_closure``, ``optimize_local`` (LM over
 the submap poses, IN PLACE), ``HostMapper.finish_map`` and
 ``trajectory`` (the submaps' histories re-posed by the optimized submap
-poses).
+poses), and ``mapper_step``, the read-per-frame step the fusion server's
+tests drive.
 
 Not ported yet: ``step_points`` (the pointcloud integrator).
 """
@@ -149,8 +150,11 @@ def create_mapper(cfg: MapperConfig, device) -> MapperState:
 
 
 def get_layer(layers: vx.TsdfLayer, k) -> vx.TsdfLayer:
-    """Copy of submap ``k``'s layer (``k`` an int or 0-d device tensor)."""
-    kk = torch.as_tensor(k, device=layers.sdf.device).reshape(1).long()
+    """Copy of submap ``k``'s layer (``k`` an int or 0-d device tensor).
+    An int index is a fill on the device, not a host copy."""
+    kk = (k.reshape(1).long() if isinstance(k, Tensor) else
+          torch.full((1,), int(k), dtype=torch.long,
+                     device=layers.sdf.device))
     return vx.TsdfLayer(**{f.name: getattr(layers, f.name).index_select(
         0, kk)[0] for f in dataclasses.fields(layers)})
 
@@ -265,6 +269,26 @@ def consume_mesh_dirty(state: MapperState, k) -> Tuple[Tensor, MapperState]:
     row = state.mesh_dirty.index_select(0, kk)[0]
     state.mesh_dirty.index_fill_(0, kk, False)
     return row, state
+
+
+def mapper_step(cfg: MapperConfig, state: MapperState, depth: Tensor,
+                color: Optional[Tensor], T_odom_cam: Tensor,
+                t: float) -> Tuple[MapperState, bool]:
+    """Host-orchestrated step: roll the submap if the interval elapsed,
+    then integrate, both IN PLACE → (state, new_submap_started). Reads
+    the submap count and the active start time (one device read);
+    ``HostMapper.step`` is the read-free form."""
+    col = state.collection
+    n, start = torch.cat([col.num_submaps.reshape(1).to(torch.float32),
+                          _row(col.start_time, col.active).reshape(1)]
+                         ).cpu().tolist()
+    t_dev = torch.full((), t, dtype=torch.float32, device=depth.device)
+    started = False
+    if n == 0 or float(t) - start >= cfg.submap_interval - 1e-6:
+        start_submap(cfg, state, T_odom_cam, t_dev)
+        started = True
+    integrate(cfg, state, depth, color, T_odom_cam, t_dev)
+    return state, started
 
 
 class HostMapper:

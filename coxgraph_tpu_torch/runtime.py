@@ -2,11 +2,16 @@
 
 ``require_cuda`` is the gate for every GPU measurement path: it raises
 when no card is visible instead of quietly running on the CPU.
+``ResourceSampler`` samples this process's CPU share and memory (the
+fusion server's ``state_query`` carries one sample).
 """
 
 from __future__ import annotations
 
+import os
 import subprocess
+import threading
+import time
 
 import torch
 
@@ -29,3 +34,71 @@ def gpu_identity() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+class ResourceSampler:
+    """Process CPU and memory sampling (the reference's node_evaluator
+    ["cpu", "mem"] modes, evaluation_config.yaml:1-2). Reads /proc;
+    ``sample()`` returns the CPU share since the previous call and the
+    resident set. ``start(rate_hz)`` / ``stop()`` run the periodic loop;
+    ``summary()`` is the end-of-run rollup."""
+
+    def __init__(self):
+        self._last = None
+        self.samples = []
+        self._thread = None
+        self._stop = None
+
+    def start(self, rate_hz: float = 1.0) -> "ResourceSampler":
+        """Sample periodically on a daemon thread until stop()."""
+        if self._thread is not None:
+            return self
+        self._stop = threading.Event()
+        self.sample()                       # baseline for the first delta
+
+        def loop():
+            while not self._stop.wait(1.0 / rate_hz):
+                self.sample()
+
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self) -> dict:
+        if self._thread is not None:
+            self._stop.set()
+            self._thread.join()
+            self._thread = None
+        return self.summary()
+
+    def summary(self) -> dict:
+        if not self.samples:
+            return {"n": 0}
+        cpu = [s["cpu_pct"] for s in self.samples]
+        rss = [s["rss_mb"] for s in self.samples]
+        return {"n": len(self.samples),
+                "cpu_pct_mean": sum(cpu) / len(cpu),
+                "cpu_pct_max": max(cpu),
+                "rss_mb_max": max(rss)}
+
+    @staticmethod
+    def _read():
+        with open(f"/proc/{os.getpid()}/stat") as f:
+            parts = f.read().split()
+        utime, stime = int(parts[13]), int(parts[14])
+        rss_pages = int(parts[23])
+        tick = os.sysconf("SC_CLK_TCK")
+        page = os.sysconf("SC_PAGE_SIZE")
+        return (time.monotonic(), (utime + stime) / tick, rss_pages * page)
+
+    def sample(self) -> dict:
+        now = self._read()
+        if self._last is None:
+            self._last = now
+            return {"cpu_pct": 0.0, "rss_mb": now[2] / 1e6}
+        dt = max(now[0] - self._last[0], 1e-9)
+        cpu = 100.0 * (now[1] - self._last[1]) / dt
+        self._last = now
+        rec = {"cpu_pct": cpu, "rss_mb": now[2] / 1e6}
+        self.samples.append(rec)
+        return rec

@@ -29,13 +29,9 @@ from ..core import geometry as geo
 from ..core import voxel as vx
 from ..ops import registration as reg
 from ..solver import pose_graph as pg
+from ..utils.tensorops import host
 
 Tensor = torch.Tensor
-
-
-def _host(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, Tensor) \
-        else np.asarray(x)
 
 
 def submap_geometry(spec: vx.VoxelGridSpec, layers: Sequence[vx.TsdfLayer]
@@ -106,7 +102,7 @@ def find_overlapping_pairs(spec: vx.VoxelGridSpec,
     cached geometry yet) takes no pairs. ``max_pairs`` keeps the pairs
     of largest intersection volume."""
     n = len(layers)
-    poses_np = _host(poses)
+    poses_np = host(poses)
     if aabbs is None or n_blocks is None:
         g_aabbs, g_counts = submap_geometry(spec, layers)
         aabbs = g_aabbs if aabbs is None else aabbs
@@ -184,7 +180,7 @@ def check_loop_closure_candidates(
     out = []
     for (i, j, T_i_j) in candidates:
         pts, sdf_i, mask_i = _cache(spec, layers, i, cfg, caches)
-        T = torch.as_tensor(np.array(_host(T_i_j), np.float32),
+        T = torch.as_tensor(np.array(host(T_i_j), np.float32),
                             device=pts.device)
         rms2, n = _candidate_stats(spec, layers[j], pts, sdf_i, mask_i,
                                    T).cpu().numpy()
@@ -403,6 +399,9 @@ def optimize_two_phase(poses: Tensor,
         if stack_cache is not None:
             stack_cache["key"] = key
             stack_cache["fields"] = (sdf_flat, w_flat, bi)
+            # the key holds ids: keep the keyed tensors alive, so no new
+            # layer can take a cached one's id while the entry stands
+            stack_cache["keyed"] = [l.sdf for l in layers]
     pts = torch.stack([p.pts_i for p in rpairs])
     sdfA = torch.stack([p.sdf_i for p in rpairs])
     maskA = torch.stack([p.mask_i for p in rpairs])

@@ -13,7 +13,11 @@ PinholeIntrinsics, FeatureConfig, LoopDetectorConfig, EsdfConfig,
 SolverConfig, RegistrationConfig) into the port's frozen dataclasses.
 
 The solve's inputs and outputs cross too: constraint and height-prior
-pools on their own, lists of layers, and ``SolveResult``.
+pools on their own, lists of layers, and ``SolveResult``. So does the
+server tier: ``ServerConfig`` and ``MapServerConfig`` (with their nested
+configs) through ``config_from``, a served ``SubmapHandle``
+(``submap_handle_from``) and an ``InProcessClient`` with its mapper state
+(``client_from``).
 
 Keypoints and a loop detector's database cross with their descriptors as
 the uint32 words of the JAX package; in the port they are int32 tensors
@@ -31,12 +35,16 @@ import torch
 from ..core import voxel as vx
 from ..frontends import loop_detector as ld
 from ..frontends import synthetic as syn
+from ..mapper import map_server as msrv
 from ..mapper import submap_mapper as sm
 from ..ops import esdf as esdf_ops
 from ..ops import features as ft
 from ..ops import registration as reg
 from ..ops import tsdf as tsdf_ops
+from ..server import client_interface as ci
+from ..server import fusion_server as fs
 from ..solver import pose_graph as pg
+from ..utils.tensorops import host
 
 
 def flatten(obj, prefix: str = "") -> Dict[str, object]:
@@ -53,7 +61,7 @@ def flatten(obj, prefix: str = "") -> Dict[str, object]:
 
 
 def _to_numpy(tree) -> Dict[str, np.ndarray]:
-    return {k: v.detach().cpu().numpy() for k, v in flatten(tree).items()}
+    return {k: host(v) for k, v in flatten(tree).items()}
 
 
 def _build(cls, arrays: Dict[str, np.ndarray], device, prefix: str = ""):
@@ -119,8 +127,41 @@ def heights_from_numpy(arrays: Dict[str, np.ndarray],
 
 
 def pool_to_numpy(pool) -> Dict[str, np.ndarray]:
-    """A constraint or height-prior pool (the port's) → {field: numpy}."""
+    """A constraint or height-prior pool (the port's or the JAX
+    package's) → {field: numpy}."""
     return _to_numpy(pool)
+
+
+def mapper_state_from(state, device) -> sm.MapperState:
+    """A MapperState (the JAX package's or the port's) → the port's on
+    ``device``."""
+    return mapper_state_from_numpy(
+        {k: host(v) for k, v in flatten(state).items()}, device)
+
+
+def submap_handle_from(h, device) -> ci.SubmapHandle:
+    """A served SubmapHandle (the JAX package's) → the port's, its layer
+    on ``device`` and the rest as host numpy."""
+    layer = layer_from_numpy({f.name: host(getattr(h.layer, f.name))
+                              for f in dataclasses.fields(h.layer)}, device)
+    return ci.SubmapHandle(
+        client_id=int(h.client_id), client_submap_id=int(h.client_submap_id),
+        layer=layer, T_cli_submap=np.array(host(h.T_cli_submap)),
+        start_time=float(h.start_time), end_time=float(h.end_time),
+        hist_stamps=np.array(host(h.hist_stamps)),
+        hist_poses=np.array(host(h.hist_poses)))
+
+
+def client_from(client, device) -> ci.InProcessClient:
+    """An InProcessClient (the JAX package's) → the port's: its config,
+    its mapper state on ``device`` and its send-once bookkeeping."""
+    out = ci.InProcessClient(client.client_id, config_from(client.cfg),
+                             mapper_state_from(client.state, device))
+    out.sent_submaps = set(client.sent_submaps)
+    out.bytes_sent = int(client.bytes_sent)
+    out.mapping_enabled = bool(client.mapping_enabled)
+    out.finished = bool(client.finished)
+    return out
 
 
 def layers_from_numpy(arrays: Sequence[Dict[str, np.ndarray]],
@@ -133,7 +174,7 @@ def layers_from_numpy(arrays: Sequence[Dict[str, np.ndarray]],
 def solve_result_to_numpy(res) -> Dict[str, np.ndarray]:
     """A SolveResult (the JAX package's or the port's) → {'poses',
     'cost', 'initial_cost', 'iterations'} as numpy."""
-    return {name: _host(getattr(res, name)) for name in pg.SolveResult._fields}
+    return {name: host(getattr(res, name)) for name in pg.SolveResult._fields}
 
 
 def solve_result_from_numpy(arrays: Dict[str, np.ndarray],
@@ -143,19 +184,12 @@ def solve_result_from_numpy(arrays: Dict[str, np.ndarray],
         for name in pg.SolveResult._fields})
 
 
-def _host(x) -> np.ndarray:
-    """A JAX array, a torch tensor (any device) or an array-like → numpy."""
-    if isinstance(x, torch.Tensor):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
-
-
 def keypoints_from_numpy(kp, device) -> ft.Keypoints:
     """Keypoints with numpy (or JAX) fields, uint32 descriptors → the
     port's Keypoints on ``device`` (int32 descriptor bit patterns)."""
     fields = {}
     for name in ft.Keypoints._fields:
-        a = _host(kp[name] if isinstance(kp, dict) else getattr(kp, name))
+        a = host(kp[name] if isinstance(kp, dict) else getattr(kp, name))
         if name == "desc":
             a = a.astype(np.uint32).view(np.int32)
         fields[name] = torch.from_numpy(np.array(a)).to(device)
@@ -164,7 +198,7 @@ def keypoints_from_numpy(kp, device) -> ft.Keypoints:
 
 def keypoints_to_numpy(kp: ft.Keypoints) -> Dict[str, np.ndarray]:
     """The port's Keypoints → {field: numpy}, descriptors as uint32."""
-    out = {name: _host(getattr(kp, name)) for name in ft.Keypoints._fields}
+    out = {name: host(getattr(kp, name)) for name in ft.Keypoints._fields}
     out["desc"] = out["desc"].view(np.uint32)
     return out
 
@@ -183,7 +217,7 @@ def detector_state_to_numpy(det) -> Dict[str, np.ndarray]:
     out = {}
     for name, (shape, dtype) in pools.items():
         x = getattr(det, "_" + name)
-        x = np.zeros(shape, dtype) if x is None else _host(x)
+        x = np.zeros(shape, dtype) if x is None else host(x)
         if x.dtype == np.int32:             # the port's descriptor words
             x = x.view(np.uint32)
         out[name] = x.astype(dtype, copy=False)
@@ -225,7 +259,8 @@ def load_detector_state(det: ld.LoopDetector,
 _CONFIGS = {c.__name__: c for c in (
     sm.MapperConfig, vx.VoxelGridSpec, tsdf_ops.TsdfIntegratorConfig,
     syn.PinholeIntrinsics, ft.FeatureConfig, ld.LoopDetectorConfig,
-    esdf_ops.EsdfConfig, pg.SolverConfig, reg.RegistrationConfig)}
+    esdf_ops.EsdfConfig, pg.SolverConfig, reg.RegistrationConfig,
+    fs.ServerConfig, msrv.MapServerConfig)}
 
 
 def config_from(obj):

@@ -12,6 +12,9 @@ the mask back to the host. These helpers keep every write on the device:
 * ``where_fields`` selects between two dataclasses of tensors field by
   field (the counterpart of a ``lax.cond`` over a pytree).
 
+``upload`` moves a host array to a device without a blocking copy;
+``host`` brings a tensor (or any array-like) back as numpy.
+
 ``check_operand`` is the kernel wrappers' check of a tensor before its
 pointer goes to CUDA.
 
@@ -52,6 +55,24 @@ def check_operand(name: str, t: Tensor, dtype, shape, device,
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % align:
         raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def upload(x, device) -> Tensor:
+    """A COPY of host array ``x`` as a tensor on ``device`` (``x`` may
+    change at once), without a blocking copy: on the card through pinned
+    staging and a non-blocking copy; the staging buffer lives until the
+    copy has run."""
+    if torch.device(device).type == "cuda":
+        t = torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
+        return t.to(device, non_blocking=True)
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def host(x) -> np.ndarray:
+    """A tensor (any device), a JAX array or an array-like → numpy."""
+    if isinstance(x, Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def scatter_drop(dst: Tensor, idx: Tensor, val: Tensor) -> Tensor:

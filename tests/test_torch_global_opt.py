@@ -190,6 +190,27 @@ def test_caches_change_nothing(problem):
     assert stack["key"][0] == min(P[4].max_reg_blocks, P[3].max_blocks)
 
 
+def test_stack_cache_keeps_its_keyed_layers(problem):
+    """The stacked field is keyed on the layers' ids, so the cache holds
+    the keyed tensors: a layer dropped by its caller cannot hand its id to
+    a new layer while the entry stands (coxgraph_tpu/server/global_opt.py
+    keys on ids without holding them, ROADMAP queue 3)."""
+    import gc
+    import weakref
+
+    _, P, _ = problem
+    ref_poses, _ = _solve(go, P)
+    stack = {}
+    copies = [dataclasses.replace(l, sdf=l.sdf.clone()) for l in P[2]]
+    probe = weakref.ref(copies[0].sdf)
+    _solve(go, P[:2] + (copies,) + P[3:], stack_cache=stack)
+    del copies
+    gc.collect()
+    assert probe() is not None
+    poses, _ = _solve(go, P, stack_cache=stack)
+    assert torch.equal(poses, ref_poses)
+
+
 def test_height_priors_in_both_phases(problem):
     """Height priors enter phase 1 and phase 2 (the reference's cost
     trace and poses, and the priors pull z toward 0)."""

@@ -160,7 +160,8 @@ def test_solve_state_and_configs_cross_exactly():
 
 def test_port_never_imports_jax():
     """With jax blocked, every module of the port (and chip_smoke.py and
-    the profiling tools) imports, and coxgraph_tpu is never reached."""
+    the profiling tools and the two-robot demo) imports, and coxgraph_tpu
+    is never reached."""
     code = r"""
 import importlib, os, pkgutil, runpy, sys
 sys.modules["jax"] = None
@@ -174,6 +175,8 @@ for tool in ("profile_torch_integrate.py", "profile_torch_detect.py",
              "profile_torch_serve.py",
              "time_k1_variants.py", "time_k2_variants.py"):
     runpy.run_path(os.path.join("tools", tool), run_name="not_main")
+runpy.run_path(os.path.join("examples", "two_robot_demo_torch.py"),
+               run_name="not_main")
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m == "coxgraph_tpu" or m.startswith("coxgraph_tpu.")
     or m == "jax" or m.startswith("jax."))]

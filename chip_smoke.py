@@ -1490,7 +1490,7 @@ def main() -> None:
     phase_detector_state(device, ident)
     torch.cuda.empty_cache()
 
-    # ---- 12. the two-robot server tier -----------------------------------------
+    # ---- 12. the two-robot server tier ----------------------------------
     phase_two_robot(device, ident)
 
     print(json.dumps({"kernels": [{

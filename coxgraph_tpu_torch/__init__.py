@@ -4,13 +4,15 @@ The JAX package ``coxgraph_tpu`` stays the reference; this package mirrors
 its module paths and function names so each counterpart is easy to find,
 and runs on an NVIDIA Hopper GPU. It imports ``torch`` and never ``jax``.
 
-Ported so far (integration, loop detection, serving and the solve):
+Ported so far (integration, loop detection, serving, the solve and the
+collaborative server tier):
 
 core      : SE(3) geometry (``core.geometry``), block-sparse voxel pools,
             allocation and sampling (``core.voxel``)
-frontends : the analytic synthetic RGB-D renderer (``frontends.synthetic``)
-            and the multi-robot keyframe database and loop detector
-            (``frontends.loop_detector``)
+frontends : the analytic synthetic RGB-D renderer and drifting odometry
+            (``frontends.synthetic``), the multi-robot keyframe database
+            and loop detector (``frontends.loop_detector``) and the VIO
+            facade (``frontends.vio_interface``)
 solver    : the relative-pose and height constraint pools and the LM
             pose-graph solve (``solver.pose_graph``)
 ops       : projective TSDF integration (``ops.tsdf``) and its CUDA block
@@ -19,21 +21,25 @@ ops       : projective TSDF integration (``ops.tsdf``) and its CUDA block
             matcher (``ops.cuda_hamming``); meshing, ESDF and layer merge
             (``ops.mesh``, ``ops.mesh_incremental``, ``ops.esdf``,
             ``ops.merge``); dense TSDF registration
-            (``ops.registration``); kernel sources in ``csrc/``
+            (``ops.registration``); the mesh post-process
+            (``ops.mesh_post``); kernel sources in ``csrc/``
 mapper    : ``MapperState``, ``integrate_batch``, ``HostMapper.step_batch``,
-            live meshing, the local pose graph and ``trajectory``
-server    : the ``MapFusionMsg`` the detector emits
-            (``server.fusion_server``; the server itself is not ported
-            yet) and the two-phase global optimize
-            (``server.global_opt``)
-eval      : the TSDF integration, serving and solve benchmarks and the
-            loop-detection operating point (``eval.benchmarks``)
+            live meshing, the local pose graph, ``trajectory`` and the
+            merged-map server (``mapper.map_server``)
+server    : the fusion server and its client interface
+            (``server.fusion_server``, ``server.client_interface``) and the
+            two-phase global optimize (``server.global_opt``)
+eval      : the benchmarks (``eval.benchmarks``), the two-robot demo
+            (``eval.demos``), ATE/RPE (``eval.metrics``) and PLY/TUM
+            export (``eval.export``)
 utils     : state interop with the JAX package (``utils.interop``)
 
 Every function takes its tensors on an explicit device; there is no global
-default device. The entry points (``HostMapper``, ``LoopDetector``) build
-their state on the card unless they are given another device. Functions that the JAX package wrote as pure functions over
-donated buffers update the port's pools IN PLACE and say so.
+default device. The entry points (``HostMapper``, ``LoopDetector``,
+``CoxgraphServer``, ``TwoRobotDemo``) build their state on the card unless
+they are given another device. Functions that the JAX package wrote as
+pure functions over donated buffers update the port's pools IN PLACE and
+say so.
 """
 
 __version__ = "0.1.0"

@@ -115,7 +115,8 @@ class MapServer:
         else:
             kf = np.asarray(self._keyframe_stamps, np.float64)
             d = np.abs(stamps[:, None] - kf[None, :])
-            sel = np.nonzero(d.min(axis=1) <= self.ms_cfg.keyframe_tolerance)[0]
+            sel = np.nonzero(
+                d.min(axis=1) <= self.ms_cfg.keyframe_tolerance)[0]
         return stamps[sel], poses[sel]
 
     def submap_mesh_msg(self, col: sm.SubmapCollection, k: int, intr,
@@ -124,4 +125,4 @@ class MapServer:
         ported yet."""
         raise NotImplementedError(
             "submap_mesh_msg needs comm.mesh_comm, not ported yet "
-            "(ROADMAP queue 4)")
+            "(ROADMAP queue 1, item 4)")

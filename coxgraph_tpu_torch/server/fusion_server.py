@@ -477,13 +477,13 @@ class CoxgraphServer:
         """Cache a client-pushed submap mesh — not ported yet."""
         raise NotImplementedError(
             "add_submap_mesh needs comm.mesh_comm, not ported yet "
-            "(ROADMAP queue 4)")
+            "(ROADMAP queue 1, item 4)")
 
     def publish_submap_meshes(self):
         """The cached client-pushed submap meshes — not ported yet."""
         raise NotImplementedError(
             "publish_submap_meshes needs comm.mesh_comm, not ported yet "
-            "(ROADMAP queue 4)")
+            "(ROADMAP queue 1, item 4)")
 
     def combined_submap_mesh(self, color_mode: int = 0,
                              ply_path: Optional[str] = None):
@@ -491,7 +491,7 @@ class CoxgraphServer:
         not ported yet."""
         raise NotImplementedError(
             "combined_submap_mesh needs comm.mesh_comm, not ported yet "
-            "(ROADMAP queue 4)")
+            "(ROADMAP queue 1, item 4)")
 
     def client_pose_updates(self, cid: int, updates) -> None:
         """Client local-PGO pose push: update the stored client-odom pose
@@ -953,7 +953,8 @@ class CoxgraphServer:
         if device_mesh is not None:
             raise NotImplementedError(
                 "get_final_global_mesh(device_mesh=...) needs "
-                "parallel.merge_sharded, not ported yet (ROADMAP queue 5)")
+                "parallel.merge_sharded, not ported yet "
+                "(ROADMAP queue 1, item 5)")
         with self._fusion_lock:
             self.wait_for_optimize()
             self.process_mf_future()

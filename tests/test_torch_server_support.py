@@ -482,7 +482,7 @@ def test_keyframe_history_matches_jax(map_servers, keyframes):
 
 def test_map_server_submap_mesh_msg_not_ported(map_servers):
     *_, pserver, pcol = map_servers
-    with pytest.raises(NotImplementedError, match="queue 4"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         pserver.submap_mesh_msg(pcol, 0, CFG.intrinsics)
 
 

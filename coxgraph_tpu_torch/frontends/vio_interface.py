@@ -3,7 +3,7 @@ the coxgraph_mod equivalent (vio_interface.h:17-140: updatePose,
 publishLoopClosure, toggleMapping, needToFuse with its cache;
 loop_closure_publisher.h routing; tf_publisher.h odometry out).
 
-An odometry frontend (or the synthetic replay driver) feeds the robot
+An odometry frontend (or the synthetic replay) feeds the robot
 through it: pose updates → the robot's mapper step, loop closures →
 ``server.map_fusion`` (the server forwards same-robot ones back as local
 constraints), and need-to-fuse answers are cached. Poses are host numpy
@@ -20,6 +20,7 @@ import torch
 from ..core import geometry as geo
 from ..mapper import submap_mapper as sm
 from ..server.fusion_server import CoxgraphServer, MapFusionMsg
+from ..utils.tensorops import host
 
 # ORB-SLAM camera convention (z forward, y down) → ROS/world (x forward,
 # z up) change of basis (tf_orb_to_ros, tf_publisher.h:187)
@@ -109,12 +110,10 @@ class VIOInterface:
         poses."""
         if self.T_odom_latest is None:
             return {}
-        T_O_S = np.asarray(self.T_odom_latest.cpu()
-                           if isinstance(self.T_odom_latest, torch.Tensor)
-                           else self.T_odom_latest)
+        T_O_S = host(self.T_odom_latest)
         if self.T_imu_sensor is None:
             return {("odom", "sensor"): T_O_S}
-        T_I_S = np.asarray(self.T_imu_sensor)
+        T_I_S = host(self.T_imu_sensor)
         return {("odom", "imu"): geo.compose_np(T_O_S,
                                                 geo.inverse_np(T_I_S)),
                 ("imu", "sensor"): T_I_S}

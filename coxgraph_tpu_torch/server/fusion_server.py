@@ -13,7 +13,7 @@ backend/node_collection.h:21-25).
 The control plane is host numpy: submap poses, the client-frame
 alignments and the constraint and height-prior pools. The pools live on
 the host (``HostPool``), are written there by ``_add_constraint`` /
-``_add_height``, and go to the device once per solve, so a fusion issues
+``_add_height``, and go to the device once per solve, so a fusion does
 no device work and no device read, and a snapshot is a host copy. The
 device holds the submap layers (copies served by the clients), the
 registration caches and the solves.

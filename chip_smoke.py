@@ -1244,8 +1244,9 @@ def small_world_card_vs_cpu(device, height: float = 0.0, **cfg_kw):
     """tests/test_server.py's two-client world (orbits raised by
     ``height``), built by the port on the CPU and carried to the card with
     utils.interop; two fusions through a server (ServerConfig with
-    ``cfg_kw``) on each → the largest (translation m, rotation rad)
-    difference of T_G_cli and the submap poses."""
+    ``cfg_kw``) on each → (the largest translation m and rotation rad
+    difference of T_G_cli and the submap poses, the first solve's phase-2
+    starting cost on the card and on the CPU, or None without phase 2)."""
     from coxgraph_tpu_torch.eval import demos
     from coxgraph_tpu_torch.server import fusion_server as fs
     from coxgraph_tpu_torch.server.client_interface import InProcessClient
@@ -1273,7 +1274,9 @@ def small_world_card_vs_cpu(device, height: float = 0.0, **cfg_kw):
             [s.T_G_cli[c] for c in sorted(s.T_G_cli)]
             + [m.T_G_submap for m in s.submaps]))
 
-    return _pose_errors(stack(card), stack(cpu))
+    start = [s.fusion_log[0].get("phase2_cost_trace", [None])[0]
+             for s in (card, cpu)]
+    return (*_pose_errors(stack(card), stack(cpu)), *start)
 
 
 def phase_two_robot(device, ident):
@@ -1375,11 +1378,14 @@ def phase_two_robot(device, ident):
             "orbits raised 0.3 m": small_world_card_vs_cpu(device, 0.3),
             "level (not gated)": small_world_card_vs_cpu(device)}
     print("[12] server optimize, card vs CPU on the small two-client world: "
-          + "; ".join(f"{k} {dt:.3e} m / {dr:.3e} rad"
-                      for k, (dt, dr) in errs.items())
+          + "; ".join(f"{k} {e[0]:.3e} m / {e[1]:.3e} rad"
+                      + ("" if e[2] is None else
+                         f" (first phase-2 start cost card {e[2]:.6f}, "
+                         f"CPU {e[3]:.6f})")
+                      for k, e in errs.items())
           + f"; phase 12 took {time.perf_counter() - t_phase:.1f} s")
     for key in ("level, registration weight 0", "orbits raised 0.3 m"):
-        dt, dr = errs[key]
+        dt, dr = errs[key][:2]
         assert dt <= 1e-4 and dr <= 1e-4, (key, dt, dr)
     return res
 

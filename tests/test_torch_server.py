@@ -28,6 +28,7 @@ test_async_pgo.py's."""
 import dataclasses
 import warnings
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -169,8 +170,8 @@ def test_final_mesh_at_given_poses_matches_jax(sequence):
     change of the global frame: as solved, every camera is level at the
     room centre's height, so one voxel axis of each submap lands on the
     global lattice, where the trilinear base voxel follows rounding noise
-    (tests/test_torch_merge.py's identity case: jitted JAX, op-by-op JAX
-    and the port then differ on 1-6% of the voxels)."""
+    (tests/test_torch_merge.py's identity case;
+    test_merge_at_the_solved_level_poses_follows_rounding below)."""
     _, _, jserver, pserver = sequence
     for s in (jserver, pserver):
         s.control_trigger(False)
@@ -202,6 +203,38 @@ def test_final_mesh_at_given_poses_matches_jax(sequence):
     assert pv.shape == jv.shape and pv.shape[0] > 500
     assert np.abs(pv - jv).max() <= lsb + 1e-6
     assert np.abs(pc - jc).max() <= 1.0 / 255 + 1e-6
+
+
+def test_merge_at_the_solved_level_poses_follows_rounding(sequence):
+    """The reference property the test above steps around (ROADMAP queue
+    3): at the poses as solved, every camera is level, so the merge
+    samples each submap on its half-voxel lattice and the trilinear cell
+    follows rounding — jitted JAX and the port then differ on more than
+    1e-3 of the merged voxels (observed 0.56%), though the allocation is
+    the same."""
+    from coxgraph_tpu.core import voxel as jvx
+    from coxgraph_tpu.ops import merge as jmerge
+    from coxgraph_tpu_torch.ops import merge as pmerge
+
+    jrec, _, jserver, _ = sequence
+    poses = jrec[-1]["poses"]
+    jm = jvx.create_tsdf_layer(ts.SPEC)
+    pm = vx.create_tsdf_layer(SPEC, CPU)
+    for k, s in enumerate(jserver.submaps[:len(poses)]):
+        jm = jmerge.merge_layer_into_sized(ts.SPEC, jm, s.layer,
+                                           jax.numpy.asarray(poses[k]))
+        pmerge.merge_layer_into_sized(
+            SPEC, pm, interop.layer_from_numpy(
+                {f.name: np.array(getattr(s.layer, f.name))
+                 for f in dataclasses.fields(s.layer)}, CPU),
+            torch.from_numpy(np.array(poses[k])))
+    got = interop.layer_to_numpy(pm)
+    for name in ("block_index", "block_coords", "num_blocks"):
+        np.testing.assert_array_equal(got[name], np.asarray(getattr(jm, name)))
+    live = (np.asarray(jm.weight) > 0) | (got["weight"] > 0)
+    flips = np.abs(got["sdf"] - np.asarray(jm.sdf)) > 1e-4
+    share = flips[live].mean()
+    assert share > 1e-3, share
 
 
 # ---------------------------------------------------------------------------

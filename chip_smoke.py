@@ -11,8 +11,10 @@ multi-robot loop-detection path (LoopDetector → features → the CUDA
 Hamming kernel K2 → RANSAC), its serving path (step_batch, then live
 meshing, ESDF and layer merge, in plain torch), its solve path (LM
 pose graph, dense registration, the two-phase global optimize, in plain
-torch) and its collaborative server tier (two robots through
-VIOInterface, the loop detector and the fusion server) and fails
+torch), its collaborative server tier (two robots through
+VIOInterface, the loop detector and the fusion server) and its
+distributed deployment (robot processes on the card serving submaps over
+the native bus, the mesh-with-history transport, point clouds) and fails
 (nonzero exit, no result line) if anything is wrong:
 
   1. device    — require a CUDA GPU; print nvidia-smi's name and power limit
@@ -112,6 +114,23 @@ VIOInterface, the loop detector and the fusion server) and fails
                  and with it on that world with the orbits raised 0.3 m
                  (the level world's registration samples sit on the voxel
                  lattice; its difference is printed)
+ 13. deployed  — the distributed deployment (eval.demos.distributed_demo,
+                 the flow of examples/experiment_driver.py) at the
+                 two-robot demo's point: two robot processes (spawned) on
+                 the card, each rendering its two_robot_experiment clip
+                 and serving its submaps over the native bus to the
+                 fusion server here (RemoteClient, RemoteVIO,
+                 ServerService); the fusion accepted, client-frame error
+                 < 0.35, > 1,000 triangles, > 10 pose rows, K1 once per
+                 integrated frame in each robot, every pulled submap ≡
+                 the robot's own copy within one wire step; the robots'
+                 finished submaps as meshes with history over the
+                 submap_mesh topic, each recovered on the card with both
+                 methods (p90 |SDF| < 2 voxels, > 100 triangles, message
+                 < 0.5 × the voxel bytes, "projective" K1 once per
+                 keyframe); examples/pointcloud_demo.py's gates on 24
+                 shuffled 160×120 clouds, and step_points timed at
+                 19,200 and 307,200 points at the bench spec
 
 The line before the last is the card's nvidia-smi name and power limit,
 the one before it the kernels' JSON record; the last line is
@@ -1390,6 +1409,112 @@ def phase_two_robot(device, ident):
     return res
 
 
+def phase_distributed(device, ident):
+    """Phase 13: the distributed deployment at the two-robot demo's point
+    (robot processes on the card, the native bus, mesh with history), and
+    the point-cloud path."""
+    from coxgraph_tpu_torch.eval import benchmarks as bm
+    from coxgraph_tpu_torch.eval import demos
+    from coxgraph_tpu_torch.frontends import synthetic as syn
+    from coxgraph_tpu_torch.mapper import submap_mapper as sm
+    from coxgraph_tpu_torch.ops import cuda_tsdf
+    from coxgraph_tpu_torch.ops import points as pts_ops
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    cuda_tsdf.LAUNCHES = 0
+    res = demos.distributed_demo(device)
+    k1_parent = cuda_tsdf.LAUNCHES
+    robots = res["robots"]
+    for cid, r in enumerate(robots):
+        print(f"[13] robot process {cid}: {r['frames']} frames at "
+              f"{r['fps']:.2f} frames/s (render, HostMapper.step, serving), "
+              f"K1 launches {r['k1_launches']}, {r['n_submaps']} submaps, "
+              f"peak device memory {r['peak_bytes'] / 2**30:.2f} GiB — "
+              f"{ident}")
+    print(f"[13] robots up (spawn, import, CUDA) {res['robots_up_s']:.2f} s; "
+          f"fusion at mid-run: dispatch {res['fusion_dispatch_s']:.3f} s, "
+          f"fusion to solution {res['fusion_to_solution_s']:.3f} s; stream "
+          f"to finish_map {res['stream_s']:.2f} s; client-frame error "
+          f"{res['align_err']:.4f} — {ident}")
+    print(f"[13] {res['server_submaps']} server submaps: "
+          f"{res['bytes_per_submap'] / 1e6:.3f} MB shipped per submap, "
+          f"{res['wire_ratio']:.4f} of the live rows' raw bytes; pull "
+          f"{res['pull_per_submap_ms']:.1f} ms per submap; "
+          f"get_submap_by_time round trip {res['submap_round_trip_ms']:.1f}"
+          f" ms; pulled ≡ robots' copies: sdf within "
+          f"{res['pulled_sdf_err']:.3e} m, weights within "
+          f"{res['pulled_weight_rel_err']:.3e}·(1+w) — {ident}")
+    print(f"[13] final global mesh {res['final_mesh_s']:.2f} s, "
+          f"{res['triangles']} triangles; {res['pose_rows']} pose rows; "
+          f"server peak device memory "
+          f"{(res['peak_bytes'] - mem0) / 2**30:.2f} GiB above the phase's "
+          f"start — {ident}")
+    rec = res["recovered"]
+
+    def spread(vals):
+        vals = sorted(vals)
+        return (f"{vals[0]:.1f} / {float(np.median(vals)):.1f} / "
+                f"{vals[-1]:.1f}")
+
+    print(f"[13] mesh with history, {len(rec)} submaps (min / median / "
+          f"max): encode {spread(res['encode_ms'])} ms (robot side), "
+          f"decode {spread([r['decode_ms'] for r in rec])} ms, recover "
+          f"projective {spread([r['projective_ms'] for r in rec])} ms, "
+          f"merged {spread([r['merged_ms'] for r in rec])} ms; message "
+          f"{spread([r['bytes'] / 1e3 for r in rec])} kB, "
+          f"{spread([100 * r['bytes'] / r['voxel_bytes'] for r in rec])}% "
+          f"of the voxel wire; p90 |SDF| projective "
+          f"{max(r['projective_p90'] for r in rec) * 100:.2f} cm, merged "
+          f"{max(r['merged_p90'] for r in rec) * 100:.2f} cm (worst); "
+          f"combined {res['combined_mesh_faces']} faces in "
+          f"{res['combined_mesh_ms']:.1f} ms; K1 launches in this process "
+          f"{k1_parent} — {ident}")
+    failed = [k for k, ok in res["gates"].items() if not ok]
+    assert not failed, (failed, res["gates"])
+    assert res["ok"] and set(res["gates"]) >= {
+        "fusion_accepted", "alignment", "triangles", "pose_history",
+        "k1_per_frame", "pulled_equals_robots", "mesh_with_history"}
+
+    # (c) point clouds: examples/pointcloud_demo.py at its own point
+    pc = demos.pointcloud_demo(device)
+    print(f"[13] point-cloud demo: {pc['clouds']} clouds of "
+          f"{pc['points_per_cloud']} points in {pc['integrate_s']:.2f} s, "
+          f"{pc['submaps']} submaps, {pc['triangles']} triangles, surface "
+          f"p90 {pc['surf_p90'] * 100:.2f} cm — {ident}")
+    assert pc["ok"], pc
+    cfg = bm._mapper_config()
+    hm = sm.HostMapper(cfg, device=device)
+    scene = syn.default_scene(device)
+    T = syn.orbit_trajectory(1, scene.room_center, radius=2.4)[0]
+    times = {}
+    for scale in (0.25, 1.0):
+        intr = syn.PinholeIntrinsics().scaled(scale)
+        depth, color = syn.render_depth(scene, intr, T)
+        p = pts_ops.backproject(intr, depth).reshape(-1, 3)
+        c = color.reshape(-1, 3)
+        m = depth.reshape(-1) > 0.1
+        T_np = T.cpu().numpy()
+        for i in range(2):                                  # warm-up
+            hm.step_points(p, c, m, T_np, 0.01 * i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(10):
+            hm.step_points(p, c, m, T_np, 0.1 + 0.01 * i)
+        torch.cuda.synchronize()
+        times[p.shape[0]] = (time.perf_counter() - t0) * 100.0
+    print("[13] HostMapper.step_points at the bench spec: "
+          + ", ".join(f"{n} points {ms:.2f} ms" for n, ms in times.items())
+          + f" — {ident}; phase 13 took "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    del hm
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> None:
     from coxgraph_tpu_torch import _build, runtime
     from coxgraph_tpu_torch.eval import benchmarks as bm
@@ -1498,6 +1623,9 @@ def main() -> None:
 
     # ---- 12. the two-robot server tier ----------------------------------
     phase_two_robot(device, ident)
+
+    # ---- 13. the distributed deployment ---------------------------------
+    phase_distributed(device, ident)
 
     print(json.dumps({"kernels": [{
         "name": "tsdf_update_blocks",

@@ -9,12 +9,24 @@ keep streaming, and builds one global mesh and per-client trajectories.
 ``TwoRobotDemo`` keeps the world between its two halves (``stream``,
 ``finish``) so a caller can inspect the server in between;
 ``two_robot_demo`` runs both and returns what the JAX demo prints.
+
+``distributed_demo`` runs the same two robots the way the reference is
+deployed (the flow of ``examples/experiment_driver.py``): each robot in
+its own OS process on the card, serving its submaps over the native bus
+to a fusion server in this process. ``pointcloud_demo`` is
+``examples/pointcloud_demo.py``: unordered clouds through
+``HostMapper.step_points``.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import pickle
+import socket
+import struct
+import tempfile
+import threading
 import time
 from typing import Optional
 
@@ -295,8 +307,494 @@ def small_two_client_world(device, height: float = 0.0):
     return [t.cpu().numpy() for t in trajs], X, clients
 
 
-def true_fusion(trajs, ta: int, tb: int) -> fs.MapFusionMsg:
-    """The exact 0 → 1 loop closure between frames ``ta`` and ``tb`` of the
-    small world (test_server.true_fusion_msg)."""
-    return fs.MapFusionMsg(0, ta * SMALL_DT, 1, tb * SMALL_DT,
+def true_fusion(trajs, ta: int, tb: int,
+                dt: float = SMALL_DT) -> fs.MapFusionMsg:
+    """The exact 0 → 1 loop closure between frames ``ta`` and ``tb`` of two
+    robots' ground-truth trajectories, ``dt`` s apart (the small world's by
+    default, test_server.true_fusion_msg)."""
+    return fs.MapFusionMsg(0, ta * dt, 1, tb * dt,
                            geo.relative_np(trajs[0][ta], trajs[1][tb]))
+
+
+# ---------------------------------------------------------------------------
+# The distributed deployment: robots in their own processes over the bus
+# ---------------------------------------------------------------------------
+
+ALIGN_GATE = 0.35    # |se3_log| of the client-frame error (the JAX drivers')
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _fence(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _robot_main(port: int, client_id: int, frames: int, device_name: str,
+                cfg: sm.MapperConfig) -> None:
+    """One robot process (spawned): its ``two_robot_experiment`` clip
+    rendered and integrated on ``device_name`` ("cuda": the card, which
+    must exist), its submaps served through a ClientService, mapping
+    gated by the toggle_mapping and finish_map services. A control
+    service ``client<id>/demo`` answers b"rep" (its numbers), b"own" + k
+    (submap k's live rows, read here), b"mesh" (from then on, one
+    finished submap's MeshWithHistory a loop pass on its submap_mesh
+    topic, so its services keep answering) and b"stop"."""
+    from ..comm import bus as cbus
+    from ..comm import wire
+    from ..frontends import replay
+    from ..mapper.map_server import MapServer
+    from ..ops import cuda_tsdf
+
+    device = (runtime.require_cuda() if device_name == "cuda"
+              else torch.device(device_name))
+    if device.type == "cpu":
+        torch.set_num_threads(1)
+    replays, _, _ = replay.two_robot_experiment(
+        n_frames=frames, intr=cfg.intrinsics, dt=DT, device=device)
+    clip = iter(replays[client_id])
+    robot = InProcessClient(client_id, cfg, sm.create_mapper(cfg, device))
+    mapper = sm.HostMapper(cfg, robot.state)
+    robot.mapper = mapper
+    robot.toggle_mapping(False)          # mapping waits for the toggle
+    svc = cbus.ClientService(port, robot, cfg.spec)
+    ctl = cbus.BusClient(port)
+    ctl.advertise(f"client{client_id}/demo")
+    cuda_tsdf.LAUNCHES = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    done, t_first, t_last = 0, None, None
+    meshes, send_meshes, ms = [], False, MapServer(cfg)
+
+    def answer(payload: bytes) -> bytes:
+        if payload[:3] == b"own":
+            (k,) = struct.unpack("<i", payload[3:])
+            with robot.lock:
+                coords, sdf, w, _ = wire.live_rows(
+                    sm.get_layer(robot.state.collection.layers, k))
+            return pickle.dumps((coords, sdf, w), protocol=4)
+        return pickle.dumps({
+            "frames": done, "k1_launches": cuda_tsdf.LAUNCHES,
+            "fps": (done / (t_last - t_first)
+                    if t_last is not None else None),
+            "n_submaps": mapper.n_submaps, "meshes": meshes,
+            "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else None)},
+            protocol=4)
+
+    while True:
+        active = robot.mapping_enabled and done < frames
+        svc.step(timeout_ms=0 if active else 10)
+        msg = ctl.poll(0)
+        if msg is not None and msg[0] == "req":
+            if msg[2] == b"stop":
+                ctl.reply(msg[3], b"\x01")
+                break
+            send_meshes |= msg[2] == b"mesh"
+            ctl.reply(msg[3], answer(msg[2]))
+        if send_meshes and robot.finished and len(meshes) < mapper.n_submaps:
+            k = len(meshes)
+            t0 = time.perf_counter()
+            m = ms.submap_mesh_msg(robot.state.collection, k,
+                                   cfg.intrinsics, client_id=client_id)
+            meshes.append({"k": k, "encode_s": time.perf_counter() - t0,
+                           "bytes": m.nbytes})
+            svc.publish_submap_mesh(m)
+        if active:
+            f = next(clip)
+            if t_first is None:
+                t_first = time.perf_counter()
+            with robot.lock:
+                mapper.step(f.depth, f.color, f.T_odom_cam, f.t)
+            svc.publish_timeline()
+            done += 1
+            if done == frames:
+                _fence(device)
+                t_last = time.perf_counter()
+    svc.bus.close()
+    ctl.close()
+
+
+class _Pump:
+    """Steps a ServerService on a thread until ``stop()``."""
+
+    def __init__(self, service):
+        self._stop = threading.Event()
+        self.errors = []
+        self._thread = threading.Thread(target=self._run, args=(service,),
+                                        daemon=True)
+        self._thread.start()
+
+    def _run(self, service):
+        while not self._stop.is_set():
+            try:
+                service.step(timeout_ms=20)
+            except Exception as e:      # reported, not swallowed
+                self.errors.append(repr(e))
+                return
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def _wait(pred, timeout: float, what: str, poll=None) -> None:
+    deadline = time.perf_counter() + timeout
+    while not pred():
+        if time.perf_counter() > deadline:
+            raise TimeoutError(f"timed out after {timeout:.0f} s: {what}")
+        if poll is not None:
+            poll()
+        time.sleep(0.02)
+
+
+def _held_to_robots(server, own):
+    """Every server submap against the robot's own copy, ``own(cid, k)`` →
+    (coords, sdf, weight) of its live rows → (worst |Δsdf|, worst
+    |Δw|/(1 + w) over observed voxels, same blocks and no weight where the
+    robot observed none)."""
+    spec = server.cfg.spec
+    worst_sdf = worst_w = 0.0
+    same = True
+    for s in server.submaps:
+        coords, sdf, w = own(s.client_id, s.client_submap_id)
+        slots = vx.lookup_block(spec, s.layer, upload(coords, server.device))
+        same &= (int(s.layer.num_blocks) == coords.shape[0]
+                 and bool((slots >= 0).all()))
+        got_sdf = s.layer.sdf[slots.long()].cpu().numpy()
+        got_w = s.layer.weight[slots.long()].cpu().numpy()
+        obs = w > 1e-6                          # the serializer's occupancy
+        worst_sdf = max(worst_sdf, float(np.abs(got_sdf - sdf)[obs]
+                                         .max(initial=0.0)))
+        worst_w = max(worst_w, float((np.abs(got_w - w) / (1.0 + w))[obs]
+                                     .max(initial=0.0)))
+        same &= bool((got_w[~obs] == 0).all())
+    return worst_sdf, worst_w, same
+
+
+def _recover_all(server, cfg, device, keys, trajs):
+    """Each pushed mesh (client, submap) in ``keys`` recovered on
+    ``device`` by both methods, its mesh held to the scene → (rows of
+    bytes and times, all gates held: > 100 triangles and p90 |SDF| < 2
+    voxels per method, the message < 0.5 × the submap's voxel wire, and
+    on the card K1 once per keyframe for "projective")."""
+    from ..comm import mesh_comm, wire
+    from ..ops import cuda_tsdf
+    from ..ops import mesh as mesh_ops
+
+    spec = cfg.spec
+    scene = syn.default_scene(device)
+    rows, ok = [], True
+    for cid, k in keys:
+        msg = server.mesh_collection[(cid, k)]
+        s = server.submaps[server.cli_ser[(cid, k)]]
+        voxel_bytes = len(wire.serialize_layer(spec, s.layer))
+        t0 = time.perf_counter()
+        n_kf = len(mesh_comm.decode_to_pointclouds(msg, spec.voxel_size))
+        row = {"client": cid, "submap": k, "bytes": msg.nbytes,
+               "voxel_bytes": voxel_bytes,
+               "decode_ms": 1e3 * (time.perf_counter() - t0)}
+        # the submap frame is the robot's camera at the submap's start
+        T_w_sm = trajs[cid][int(round(msg.t0 / DT))]
+        for method in ("projective", "merged"):
+            _fence(device)
+            k1 = cuda_tsdf.LAUNCHES
+            t0 = time.perf_counter()
+            layer = mesh_comm.recover_layer(
+                spec, cfg.integrator, cfg.intrinsics, msg, method=method,
+                device=device)
+            _fence(device)
+            row[f"{method}_ms"] = 1e3 * (time.perf_counter() - t0)
+            if method == "projective" and device.type == "cuda":
+                row["k1_per_keyframe"] = cuda_tsdf.LAUNCHES - k1 == n_kf
+            v, _ = mesh_ops.extract_mesh(spec, layer, min_weight=1e-4)
+            sdf = syn.scene_sdf(scene, upload(geo.transform_points_np(
+                T_w_sm, v.reshape(-1, 3)).astype(np.float32), device))
+            row[f"{method}_tris"] = int(v.shape[0])
+            row[f"{method}_p90"] = (float(np.quantile(np.abs(
+                sdf.cpu().numpy()), 0.9)) if v.shape[0] else math.inf)
+            ok &= (row[f"{method}_tris"] > 100
+                   and row[f"{method}_p90"] < 2 * spec.voxel_size)
+        ok &= (msg.nbytes < 0.5 * voxel_bytes
+               and row.get("k1_per_keyframe", True))
+        rows.append(row)
+    return rows, ok and bool(rows)
+
+
+def distributed_demo(device=None, frames: int = 40, scale: float = 0.25,
+                     reg_weight: float = 30.0, out: Optional[str] = None,
+                     configs=None, timeout: float = 300.0) -> dict:
+    """The two-robot demo deployed as the reference is: two robot
+    processes (spawned, never forked) on ``device`` (None: the card),
+    each serving its ``two_robot_experiment`` clip over the native bus,
+    and this process running the fusion server over two RemoteClients
+    with a ServerService and a RemoteVIO — the flow of
+    ``examples/experiment_driver.py``: toggle mapping on, wait until both
+    timelines cover mid-run, fuse the two robots there with a
+    ground-truth MapFusionMsg (the async solve pushes its poses back into
+    the robots while they stream), wait for the whole clip, finish_map
+    on each robot, collect every submap, the final global mesh to a PLY
+    and the pose history to a TUM file (in ``out``, default a temporary
+    directory). Then the mesh-with-history transport: each robot's
+    finished submaps arrive on the submap_mesh topic, are combined, and
+    every message is recovered with both methods.
+
+    ``configs``: ``demo_configs``' tuple to run instead of the demo's own.
+    → the numbers and ``gates`` (each a bool) and ``ok``."""
+    import multiprocessing as mp
+
+    from .. import _build, native
+    from ..comm import bus as cbus
+    from ..frontends import replay
+
+    device = (runtime.require_cuda() if device is None
+              else torch.device(device))
+    cfg, server_cfg, _, mesh_spec = (configs or demo_configs(
+        frames, scale, reg_weight))
+    spec = cfg.spec
+    # build both libraries here once: the robots load the cached builds
+    native.lib()
+    if device.type == "cuda":
+        _build.load()
+        torch.cuda.reset_peak_memory_stats(device)
+    _, trajs, X = replay.two_robot_experiment(
+        scene=syn.default_scene(device), n_frames=frames,
+        intr=cfg.intrinsics, dt=DT)
+    tmp = tempfile.TemporaryDirectory() if out is None else None
+    out = tmp.name if out is None else out
+    os.makedirs(out, exist_ok=True)
+    port = free_port()
+    broker = cbus.Broker(port)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_robot_main,
+                         args=(port, cid, frames, device.type, cfg),
+                         daemon=True) for cid in range(2)]
+    res: dict = {"frames": frames}
+    gates: dict = {}
+    pump = ctl = None
+    try:
+        for p in procs:
+            p.start()
+        proxies = [cbus.RemoteClient(port, cid, spec, device=device)
+                   for cid in range(2)]
+        server = fs.CoxgraphServer(server_cfg, proxies, device)
+        pump = _Pump(cbus.ServerService(port, server))
+        vio = cbus.RemoteVIO(port, timeout_ms=int(timeout * 1000))
+        ctl = cbus.BusClient(port)
+
+        def alive():
+            dead = [p.exitcode for p in procs if not p.is_alive()]
+            if dead:
+                raise RuntimeError(f"a robot process exited ({dead})")
+
+        def robot(cid: int, payload: bytes):
+            return pickle.loads(ctl.request(f"client{cid}/demo", payload,
+                                            int(timeout * 1000)))
+
+        t_start = time.perf_counter()
+        for cid in range(2):       # start_mapping.sh: toggle each robot
+            _wait(lambda: vio.toggle_mapping(cid, True), timeout,
+                  f"robot {cid}'s toggle_mapping service", alive)
+        res["robots_up_s"] = time.perf_counter() - t_start
+
+        def covered(t):
+            return all(t1 >= t - 1e-5 for _, t1 in
+                       (p.timeline() for p in proxies))
+
+        mid = frames // 2
+        _wait(lambda: covered(mid * DT), timeout, "mid-run coverage",
+              server.time_line_update)
+        t0 = time.perf_counter()
+        gates["fusion_accepted"] = bool(server.map_fusion(
+            true_fusion(trajs, mid, mid, dt=DT)))
+        res["fusion_dispatch_s"] = time.perf_counter() - t0
+        server.wait_for_optimize()
+        res["fusion_to_solution_s"] = time.perf_counter() - t0
+        _wait(lambda: covered((frames - 1) * DT), timeout,
+              "whole-clip coverage", server.time_line_update)
+        for cid in range(2):       # finish_experiment.sh
+            gates[f"finish_map_{cid}"] = bool(vio.finish_map(cid))
+        res["stream_s"] = time.perf_counter() - t_start
+
+        # every submap pulled once more after finish_map (send-once keeps
+        # those that did not change), then held to the robots' own copies
+        t0 = time.perf_counter()
+        server.collect_all_submaps()
+        pull_s = time.perf_counter() - t0
+        n_sub = len(server.submaps)
+        res["server_submaps"] = n_sub
+        res["pull_per_submap_ms"] = 1e3 * pull_s / max(n_sub, 1)
+        shipped = [e.n_bytes for p in proxies for e in p.bandwidth.events
+                   if e.name.endswith("all_submaps")]
+        raw = sum(int(s.layer.num_blocks) * (5 * spec.voxels_per_side ** 3
+                                             * 4 + 12)
+                  for s in server.submaps)
+        res["bytes_per_submap"] = sum(shipped) / max(n_sub, 1)
+        res["wire_ratio"] = sum(shipped) / max(raw, 1)
+        worst_sdf, worst_w, same_blocks = _held_to_robots(
+            server, lambda cid, k: robot(cid, b"own" + struct.pack("<i", k)))
+        res["pulled_sdf_err"], res["pulled_weight_rel_err"] = (worst_sdf,
+                                                                worst_w)
+        # one wire step (plus the f32 rounding of the dequantized value);
+        # weights are log-quantized: a step is (1 + w)·ln(1e4 + 1)/65535
+        gates["pulled_equals_robots"] = bool(
+            same_blocks and worst_sdf <= spec.truncation / 32000
+            + 2 * float(np.spacing(np.float32(spec.truncation)))
+            and worst_w <= math.log1p(1e4) / 65535 * 1.001)
+
+        t0 = time.perf_counter()
+        proxies[0].get_submap_by_time(mid * DT)
+        res["submap_round_trip_ms"] = 1e3 * (time.perf_counter() - t0)
+        # the robots encode their meshes while the final mesh is built
+        for cid in range(2):
+            robot(cid, b"mesh")
+
+        ply = os.path.join(out, "coxgraph_server_mesh.ply")
+        _fence(device)
+        t0 = time.perf_counter()
+        _, verts, _ = server.get_final_global_mesh(ply, mesh_spec=mesh_spec)
+        _fence(device)
+        res["final_mesh_s"] = time.perf_counter() - t0
+        res["triangles"] = int(verts.shape[0])
+        gates["triangles"] = res["triangles"] > 1000
+        traj_path = vio.save_pose_history(out)
+        with open(traj_path) as fh:
+            res["pose_rows"] = fh.read().count("\n")
+        gates["pose_history"] = res["pose_rows"] > 10
+        err = geo.se3_log(geo.relative(
+            torch.from_numpy(np.asarray(server.T_G_cli[1], np.float32)),
+            torch.from_numpy(X[1]))).numpy()
+        res["align_err"] = float(np.linalg.norm(err))
+        gates["alignment"] = res["align_err"] < ALIGN_GATE
+        res["optimize_errors"] = list(server.optimize_errors)
+        gates["no_solve_error"] = not server.optimize_errors
+
+        reports = [robot(cid, b"rep") for cid in range(2)]
+        if device.type == "cuda":        # K1 launches only on the card
+            gates["k1_per_frame"] = all(
+                r["k1_launches"] == r["frames"] == frames for r in reports)
+
+        # the mesh-with-history transport
+        want = {(cid, k) for cid, r in enumerate(reports)
+                for k in range(r["n_submaps"])}
+        _wait(lambda: want <= set(server.mesh_collection), timeout,
+              "the robots' submap meshes", alive)
+        reports = [robot(cid, b"rep") for cid in range(2)]
+        res["robots"] = [{k: v for k, v in r.items() if k != "meshes"}
+                         for r in reports]
+        t0 = time.perf_counter()
+        mverts, mfaces, _ = server.combined_submap_mesh(
+            ply_path=os.path.join(out, "combined_submap_meshes.ply"))
+        res["combined_mesh_ms"] = 1e3 * (time.perf_counter() - t0)
+        res["combined_mesh_faces"] = int(mfaces.shape[0])
+        res["encode_ms"] = [1e3 * m["encode_s"] for r in reports
+                            for m in r["meshes"]]
+        rec, mesh_ok = _recover_all(server, cfg, device, sorted(want),
+                                    trajs)
+        res["recovered"] = rec
+        gates["mesh_with_history"] = mesh_ok
+        if device.type == "cuda":
+            res["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        res["server_pump_errors"] = list(pump.errors)
+        gates["server_pump"] = not pump.errors
+    finally:
+        for cid, p in enumerate(procs):
+            if ctl is not None and p.is_alive():
+                try:
+                    ctl.request(f"client{cid}/demo", b"stop", 5000)
+                except (TimeoutError, OSError):
+                    pass
+        for p in procs:
+            if p.pid is None:               # never started
+                continue
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if pump is not None:
+            pump.stop()
+        if ctl is not None:
+            ctl.close()
+        broker.close()
+        if tmp is not None:
+            tmp.cleanup()
+    res["gates"] = gates
+    res["ok"] = bool(gates) and all(gates.values())
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Point-cloud mapping (examples/pointcloud_demo.py)
+# ---------------------------------------------------------------------------
+
+POINTCLOUD_DT = 0.1
+
+
+def pointcloud_configs(frames: int, scale: float) -> sm.MapperConfig:
+    """examples/pointcloud_demo.py's mapper: 5 cm voxels, 16³ blocks,
+    4,096 blocks × 8 submaps, four submaps over the clip."""
+    spec = vx.VoxelGridSpec(voxel_size=0.05, voxels_per_side=16, grid_dim=64,
+                            max_blocks=4096, truncation=0.15)
+    return sm.MapperConfig(
+        spec=spec,
+        integrator=tsdf_ops.TsdfIntegratorConfig(max_touched_blocks=2048),
+        intrinsics=syn.PinholeIntrinsics().scaled(scale), max_submaps=8,
+        max_history=64, submap_interval=frames * POINTCLOUD_DT / 4)
+
+
+def pointcloud_demo(device=None, frames: int = 24, scale: float = 0.25,
+                    out: Optional[str] = None, cfg=None) -> dict:
+    """A robot streaming UNORDERED clouds (rendered depth backprojected,
+    then shuffled with numpy's seed 0) through ``HostMapper.step_points``
+    on ``device`` (None: the card), then the merged map's mesh against
+    the analytic scene → submaps, integration wall, triangles, surface
+    error p90 and ``ok`` (≥ 3 submaps, > 1,000 triangles, p90 < 2
+    voxels). With ``out`` the mesh PLY is written there."""
+    from ..ops import mesh as mesh_ops
+    from ..ops import points as pts_ops
+
+    device = (runtime.require_cuda() if device is None
+              else torch.device(device))
+    cfg = cfg or pointcloud_configs(frames, scale)
+    intr, spec = cfg.intrinsics, cfg.spec
+    scene = syn.default_scene(device)
+    traj = syn.orbit_trajectory(frames, scene.room_center.cpu(), radius=2.5)
+    traj_np = traj.numpy()
+    mapper = sm.HostMapper(cfg, device=device)
+    rng = np.random.default_rng(0)
+    _fence(device)
+    t0 = time.perf_counter()
+    for i in range(frames):
+        depth, color = syn.render_depth(scene, intr, traj[i].to(device))
+        perm = torch.from_numpy(rng.permutation(depth.numel())).to(device)
+        p = pts_ops.backproject(intr, depth).reshape(-1, 3)[perm]
+        c = color.reshape(-1, 3)[perm]
+        m = depth.reshape(-1)[perm] > 0.1
+        mapper.step_points(p, c, m, traj_np[i], i * POINTCLOUD_DT)
+    _fence(device)
+    res = {"clouds": frames, "points_per_cloud": intr.width * intr.height,
+           "integrate_s": time.perf_counter() - t0,
+           "submaps": mapper.n_submaps}
+    merged = sm.merged_layer(cfg, mapper.state.collection)
+    verts, cols = mesh_ops.extract_mesh(spec, merged, min_weight=1e-4)
+    if out:
+        os.makedirs(out, exist_ok=True)
+        export.write_ply(os.path.join(out, "pointcloud_map.ply"), verts,
+                         cols)
+    sdf = syn.scene_sdf(scene, upload(np.ascontiguousarray(
+        verts.reshape(-1, 3)), device)).cpu().numpy()
+    res["triangles"] = int(verts.shape[0])
+    res["surf_p90"] = (float(np.quantile(np.abs(sdf), 0.9))
+                       if verts.shape[0] else math.inf)
+    res["ok"] = bool(res["submaps"] >= 3 and res["triangles"] > 1000
+                     and res["surf_p90"] < 2.0 * spec.voxel_size)
+    return res

@@ -9,9 +9,8 @@ it (map_server.h:141-145), the traversability point set (free space with
 robot-radius clearance, map_server.cpp:109-117) and the keyframe-filtered
 trajectory of a submap (map_server.cpp:119-152). No topics or timers:
 the merged maps are cached device tensors invalidated by pose updates
-and rollovers, and queries return them.
-
-Not ported yet: ``submap_mesh_msg`` (needs ``comm.mesh_comm``).
+and rollovers, and queries return them. ``submap_mesh_msg`` encodes a
+finished submap for the mesh-with-history transport.
 """
 
 from __future__ import annotations
@@ -121,8 +120,18 @@ class MapServer:
 
     def submap_mesh_msg(self, col: sm.SubmapCollection, k: int, intr,
                         client_id: int = 0, soup=None):
-        """Finished submap k as a MeshWithHistory wire message — not
-        ported yet."""
-        raise NotImplementedError(
-            "submap_mesh_msg needs comm.mesh_comm, not ported yet "
-            "(ROADMAP queue 1, item 4)")
+        """Finished submap k as a MeshWithHistory wire message with its
+        keyframe-filtered trajectory (the reference's
+        submap_mesh_with_traj output, map_server.cpp:119-152).
+
+        ``soup``: a precomputed triangle soup (e.g.
+        ``HostMapper.live_mesh(k)``), which skips the full-layer
+        re-extraction."""
+        from ..comm import mesh_comm
+
+        stamps, poses = self.keyframe_history(col, k)
+        return mesh_comm.encode_submap_mesh(
+            self.cfg.spec, sm.get_layer(col.layers, k), stamps, poses, intr,
+            client_id=client_id, submap_id=k,
+            keyframe_stride=1,   # already keyframe-filtered above
+            soup=soup)

@@ -25,7 +25,8 @@ the submap poses, IN PLACE), ``HostMapper.finish_map`` and
 poses), and ``mapper_step``, the read-per-frame step the fusion server's
 tests drive.
 
-Not ported yet: ``step_points`` (the pointcloud integrator).
+Point-cloud sensors: ``integrate_points`` and ``HostMapper.step_points``
+run the same submap pipeline through ``ops/points.py``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from ..core import geometry as geo
 from ..core import voxel as vx
 from ..frontends.synthetic import PinholeIntrinsics
 from ..ops import merge as merge_ops
+from ..ops import points as points_ops
 from ..ops import tsdf as tsdf_ops
 from ..ops.mesh_incremental import IncrementalMesher
 from ..solver import pose_graph as pg
@@ -52,8 +54,8 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class MapperConfig:
-    """Static mapper parameters (the JAX package's fields and defaults;
-    its ``point_integrator`` belongs to a path not ported yet)."""
+    """Static mapper parameters (the JAX package's fields and
+    defaults)."""
 
     spec: vx.VoxelGridSpec = vx.VoxelGridSpec()
     integrator: tsdf_ops.TsdfIntegratorConfig = \
@@ -71,6 +73,8 @@ class MapperConfig:
     # absolute height priors on submap poses (odom z at submap creation);
     # 0 = off
     height_prior_stddev: float = 0.0
+    # point-cloud integrator settings; None = derived from ``integrator``
+    point_integrator: Optional[points_ops.PointIntegratorConfig] = None
 
 
 @dataclasses.dataclass
@@ -259,6 +263,41 @@ def integrate_batch(cfg: MapperConfig, state: MapperState, depths: Tensor,
                                            T_odom_cams, ts)
     torch.maximum(state.union_watermark, n_union, out=state.union_watermark)
     state.dropped_union_blocks += n_dropped
+    return state
+
+
+def _point_cfg(cfg: MapperConfig) -> points_ops.PointIntegratorConfig:
+    if cfg.point_integrator is not None:
+        return cfg.point_integrator
+    return points_ops.PointIntegratorConfig(
+        max_range=cfg.integrator.max_range,
+        min_range=cfg.integrator.min_range,
+        max_weight=cfg.integrator.max_weight,
+        max_touched_blocks=cfg.integrator.max_touched_blocks,
+        use_distance_weight=cfg.integrator.use_distance_weight,
+        use_dropoff=cfg.integrator.use_dropoff)
+
+
+def integrate_points(cfg: MapperConfig, state: MapperState, points: Tensor,
+                     colors: Optional[Tensor], valid: Tensor,
+                     T_odom_sensor: Tensor, t: Tensor) -> MapperState:
+    """Integrate one unordered point cloud into the active submap and
+    append to its pose history, IN PLACE — the reference client's
+    ``pointcloud``-topic input (voxblox integratePointCloud), the mirror
+    of ``integrate`` for cloud sensors (lidar, points decoded from a
+    mesh). No device-to-host read."""
+    col = state.collection
+    k = col.active
+    T_sm_sensor = geo.relative(_row(col.T_odom_submap, k), T_odom_sensor)
+    _, touched = points_ops.integrate_points_stacked_impl(
+        cfg.spec, _point_cfg(cfg), col.layers, k, points, colors, valid,
+        T_sm_sensor, return_stats=True)
+    _append_history(cfg, col, k, T_sm_sensor[None],
+                    t.reshape(1).to(torch.float32))
+    state.frame_count += 1
+    kk = k.reshape(1).long()
+    state.mesh_dirty.index_copy_(
+        0, kk, state.mesh_dirty.index_select(0, kk) | touched[None])
     return state
 
 
@@ -490,6 +529,38 @@ class HostMapper:
                   None if color is None else self._tensor(color), T_dev,
                   t_dev)
         self._mirror_frame(T_odom_cam, t)
+        self._touched_submaps.add(max(self.n_submaps - 1, 0))
+        return started
+
+    def step_points(self, points, colors, valid, T_odom_sensor,
+                    t: float) -> bool:
+        """Point-cloud sensor step (lidar, recovered clouds): the rollover
+        of ``step``, then ``integrate_points``. Returns whether a submap
+        was started."""
+        if not self.mapping_enabled:
+            return False
+        self._consume_pending_stats()
+        started = False
+        T_dev = self._tensor(T_odom_sensor)
+        t_dev = torch.full((), t, dtype=torch.float32, device=self.device)
+        if (self.n_submaps == 0
+                or t - self.last_start >= self.cfg.submap_interval - 1e-6):
+            if self._rollover_sat():
+                self.last_start = t
+            else:
+                start_submap(self.cfg, self.state, T_dev, t_dev)
+                self.n_submaps += 1
+                self.last_start = t
+                started = True
+                self._mirror_start(T_odom_sensor, t)
+        valid = (valid.to(self.device, torch.bool)
+                 if isinstance(valid, Tensor)
+                 else torch.from_numpy(np.asarray(valid, bool)).to(
+                     self.device, non_blocking=True))
+        integrate_points(self.cfg, self.state, self._tensor(points),
+                         None if colors is None else self._tensor(colors),
+                         valid, T_dev, t_dev)
+        self._mirror_frame(T_odom_sensor, t)
         self._touched_submaps.add(max(self.n_submaps - 1, 0))
         return started
 

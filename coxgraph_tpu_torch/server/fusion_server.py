@@ -23,11 +23,12 @@ robots integrate on others. Every thread enqueues on the device's one
 default stream, so the clients' pause locks order the device work as
 they order the host calls.
 
-Not ported yet: the client-pushed submap meshes (``add_submap_mesh``,
-``publish_submap_meshes``, ``combined_submap_mesh``; they need
-``comm.mesh_comm``) and the ``device_mesh`` branch of
-``get_final_global_mesh`` (``parallel.merge_sharded``). Those calls raise
-``NotImplementedError``.
+Client-pushed submap meshes (``comm.mesh_comm.MeshWithHistory``) are
+cached by ``add_submap_mesh`` and combined in the global frame by
+``combined_submap_mesh``.
+
+Not ported yet: the ``device_mesh`` branch of ``get_final_global_mesh``
+(``parallel.merge_sharded``); it raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -253,6 +254,9 @@ class CoxgraphServer:
         self.in_control = True          # DistributionController
         self.fusion_log: List[dict] = []
         self.candidate_log: List[dict] = []   # checkLoopClosureCandidates
+        # client-pushed submap meshes, (cid, csid) → MeshWithHistory
+        # (MeshCollection, mesh_collection.h:25-31)
+        self.mesh_collection: Dict[Tuple[int, int], object] = {}
         # auto-mesh bookkeeping (coxgraph_server.h:109, :183)
         self.global_mesh_need_update = 0
         self.global_mesh_initialized = False
@@ -474,24 +478,58 @@ class CoxgraphServer:
         return sid
 
     def add_submap_mesh(self, cid: int, csid: int, mesh_msg) -> None:
-        """Cache a client-pushed submap mesh — not ported yet."""
-        raise NotImplementedError(
-            "add_submap_mesh needs comm.mesh_comm, not ported yet "
-            "(ROADMAP queue 1, item 4)")
+        """Cache a client-pushed submap mesh (ClientHandler::
+        submapMeshCallback → MeshCollection::addSubmapMesh,
+        client_handler.h:185-193, mesh_collection.h:25-31)."""
+        self.mesh_collection[(int(cid), int(csid))] = mesh_msg
 
     def publish_submap_meshes(self):
-        """The cached client-pushed submap meshes — not ported yet."""
-        raise NotImplementedError(
-            "publish_submap_meshes needs comm.mesh_comm, not ported yet "
-            "(ROADMAP queue 1, item 4)")
+        """All cached client-pushed submap meshes, keyed (cid, csid): the
+        pull form of ServerVisualizer::publishSubmapMeshes' republish
+        timer (server_visualizer.h:194-203)."""
+        return dict(self.mesh_collection)
+
+    # flat per-client palette (msg_converter.h:239-257 getColor mode 1:
+    # cid 0/1/2 → R/G/B), cycled past 3 clients
+    _CLIENT_COLORS = np.array(
+        [[255, 0, 0], [0, 255, 0], [0, 0, 255]], np.uint8)
 
     def combined_submap_mesh(self, color_mode: int = 0,
                              ply_path: Optional[str] = None):
-        """The client-pushed submap meshes combined in the global frame —
-        not ported yet."""
-        raise NotImplementedError(
-            "combined_submap_mesh needs comm.mesh_comm, not ported yet "
-            "(ROADMAP queue 1, item 4)")
+        """The client-pushed submap meshes combined in the current global
+        frame (ServerVisualizer's mesh combination,
+        server_visualizer.cpp:67-121, on o3dMeshFromMsg,
+        msg_converter.h:202-264). color_mode 0 keeps the meshes' RGB, 1
+        paints each client a flat colour. A mesh whose submap has not
+        reached the collection yet is skipped (no pose). Host numpy →
+        (vertices (V,3) f32, faces (F,3) u32, colors (V,3) u8)."""
+        verts, faces, cols = [], [], []
+        base = 0
+        with self._state_lock:
+            snapshot = [(cid, m, np.asarray(
+                self.submaps[self.cli_ser[(cid, csid)]].T_G_submap,
+                np.float32))
+                for (cid, csid), m in sorted(self.mesh_collection.items())
+                if (cid, csid) in self.cli_ser]
+        for cid, m, T in snapshot:
+            v = geo.transform_points_np(T, m.vertices())
+            verts.append(v)
+            faces.append(np.asarray(m.faces, np.uint32) + base)
+            base += v.shape[0]
+            if color_mode == 1:
+                cols.append(np.broadcast_to(
+                    self._CLIENT_COLORS[cid % 3], (v.shape[0], 3)).copy())
+            else:
+                cols.append(np.asarray(m.vcolors, np.uint8))
+        if not verts:
+            return (np.zeros((0, 3), np.float32),
+                    np.zeros((0, 3), np.uint32), np.zeros((0, 3), np.uint8))
+        V = np.concatenate(verts).astype(np.float32)
+        F = np.concatenate(faces).astype(np.uint32)
+        C = np.concatenate(cols).astype(np.uint8)
+        if ply_path:
+            export.write_ply_indexed(ply_path, V, F, C)
+        return V, F, C
 
     def client_pose_updates(self, cid: int, updates) -> None:
         """Client local-PGO pose push: update the stored client-odom pose

@@ -10,7 +10,8 @@ and returns its leaves unconverted; the caller turns JAX arrays into numpy
 ``config_from`` copies any object carrying the JAX configs' attribute
 names (MapperConfig, VoxelGridSpec, TsdfIntegratorConfig,
 PinholeIntrinsics, FeatureConfig, LoopDetectorConfig, EsdfConfig,
-SolverConfig, RegistrationConfig) into the port's frozen dataclasses.
+SolverConfig, RegistrationConfig, PointIntegratorConfig) into the port's
+frozen dataclasses.
 
 The solve's inputs and outputs cross too: constraint and height-prior
 pools on their own, lists of layers, and ``SolveResult``. So does the
@@ -39,6 +40,7 @@ from ..mapper import map_server as msrv
 from ..mapper import submap_mapper as sm
 from ..ops import esdf as esdf_ops
 from ..ops import features as ft
+from ..ops import points as points_ops
 from ..ops import registration as reg
 from ..ops import tsdf as tsdf_ops
 from ..server import client_interface as ci
@@ -260,20 +262,16 @@ _CONFIGS = {c.__name__: c for c in (
     sm.MapperConfig, vx.VoxelGridSpec, tsdf_ops.TsdfIntegratorConfig,
     syn.PinholeIntrinsics, ft.FeatureConfig, ld.LoopDetectorConfig,
     esdf_ops.EsdfConfig, pg.SolverConfig, reg.RegistrationConfig,
-    fs.ServerConfig, msrv.MapServerConfig)}
+    fs.ServerConfig, msrv.MapServerConfig,
+    points_ops.PointIntegratorConfig)}
 
 
 def config_from(obj):
     """Copy a config object (matched by class name) into the port's frozen
-    dataclass of the same name, recursing into nested configs. Raises
-    when the source sets a field the port cannot honour yet (a
-    MapperConfig's ``point_integrator``)."""
+    dataclass of the same name, recursing into nested configs."""
     cls = _CONFIGS.get(type(obj).__name__)
     if cls is None:
         raise TypeError(f"no port config for {type(obj).__name__}")
-    if getattr(obj, "point_integrator", None) is not None:
-        raise ValueError(f"{type(obj).__name__}.point_integrator is set, "
-                         "but its path is not ported yet")
     kw = {}
     for f in dataclasses.fields(cls):
         val = getattr(obj, f.name)

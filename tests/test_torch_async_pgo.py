@@ -6,10 +6,8 @@ previous solve, a solve failure is contained, nonblocking fusions
 coalesce into one re-run, an isolated final mesh leaves the online graph
 bit-identical while robots, fusions and timeline ticks run, and deferred
 local PGO runs on the robot's thread (its solve ≡ the JAX package's to
-1e-5 on the submap poses; observed 3.7e-9 m).
-
-Not ported here: test_checkpoint_during_inflight_solve (utils.checkpoint
-is not ported yet)."""
+1e-5 on the submap poses; observed 3.7e-9 m), and a checkpoint taken
+during an in-flight solve holds the pre-solve poses."""
 
 import random
 import sys
@@ -347,3 +345,28 @@ def test_deferred_local_pgo_runs_on_robot_thread_and_matches_jax():
     dt, dr = pose_errors(after, np.asarray(jc.state.collection.T_odom_submap))
     assert dt <= 1e-5 and dr <= 1e-5, (dt, dr)
     assert not c.run_pending_local_pgo()
+
+
+def test_checkpoint_during_inflight_solve(frame, tmp_path):
+    """save_server taken while a background solve is in flight captures a
+    consistent snapshot (all pre-solve poses: the solve applies its result
+    atomically under _state_lock afterwards) and does not deadlock
+    against the solve thread."""
+    from coxgraph_tpu_torch.utils import checkpoint as ckpt
+
+    server, _ = make_server(frame, async_pgo=True)
+    started, release = ta.gate_optimize(server)
+    assert server.map_fusion(mf())
+    assert started.wait(10)
+    pre_poses = [s.T_G_submap.copy() for s in server.submaps]
+    d = str(tmp_path / "ckpt")
+    ckpt.save_server(d, server)                   # solve still in flight
+    release.set()
+    server.wait_for_optimize()
+    assert server.optimize_errors == []
+
+    server2, _ = make_server(frame)
+    ckpt.load_server(d, server2)
+    assert len(server2.submaps) == len(pre_poses)
+    for s, pre in zip(server2.submaps, pre_poses):
+        np.testing.assert_allclose(s.T_G_submap, pre, atol=1e-7)

@@ -769,3 +769,126 @@ def test_final_mesh_on_gpu_matches_cpu(gpu):
     assert vg.shape == vc.shape and vc.shape[0] > 500
     assert np.abs(vg - vc).max() <= lsb + 1e-6
     assert np.abs(cg - cc).max() <= 1.0 / 255 + 1e-6
+
+
+# ---------------------------------------------------------------------------
+# Transports and point clouds (wire, mesh with history, ops.points)
+# ---------------------------------------------------------------------------
+
+
+def _card_and_cpu_layer(gpu, spec):
+    """The same two frames integrated into a layer on the card and on the
+    CPU → (card layer, CPU layer)."""
+    out = []
+    for device in (gpu, torch.device("cpu")):
+        depths, colors, traj = _frames(device)
+        layer = vx.create_tsdf_layer(spec, device)
+        for f in range(2):
+            tsdf.integrate_frame(spec, CFG, INTR, layer, depths[f],
+                                 colors[f], traj[f])
+        out.append(layer)
+    return out
+
+
+@pytest.mark.cuda
+def test_wire_round_trip_of_a_card_layer(gpu):
+    """A card layer serializes to the bytes of its CPU copy (one read of
+    its live rows), and bytes decode onto the card bit for bit as onto the
+    CPU: rows, coords, block index and slot order."""
+    from coxgraph_tpu_torch.comm import wire
+
+    spec = _spec(8)
+    card, _ = _card_and_cpu_layer(gpu, spec)
+    cpu_copy = vx.TsdfLayer(**{f.name: getattr(card, f.name).cpu()
+                               for f in dataclasses.fields(card)})
+    buf = wire.serialize_layer(spec, card)
+    assert buf == wire.serialize_layer(spec, cpu_copy)
+    a = wire.deserialize_layer(spec, buf, gpu)
+    b = wire.deserialize_layer(spec, buf, torch.device("cpu"))
+    for f in dataclasses.fields(a):
+        assert getattr(a, f.name).is_cuda
+        assert torch.equal(getattr(a, f.name).cpu(), getattr(b, f.name))
+
+
+@pytest.mark.cuda
+def test_render_points_on_gpu_matches_cpu(gpu):
+    """Depth (a per-pixel min) and colour (the least-z, then lowest-index
+    point) are exact, with many points per pixel and exact z ties."""
+    from coxgraph_tpu_torch.comm import mesh_comm
+
+    g = torch.Generator().manual_seed(0)
+    n = 20_000
+    pts = torch.rand((n, 3), generator=g) * torch.tensor([2.0, 1.5, 3.0]) \
+        - torch.tensor([1.0, 0.75, -0.2])
+    pts[:n // 2, 2] = pts[n // 2:, 2]                    # exact z ties
+    cols = torch.rand((n, 3), generator=g)
+    want = mesh_comm.render_points(INTR, pts, cols)
+    got = mesh_comm.render_points(INTR, pts.to(gpu), cols.to(gpu))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+    assert int((want[0] > 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_step_points_on_gpu_matches_cpu(gpu):
+    """HostMapper.step_points over four clouds on the card ≡ on the CPU:
+    the block set, slots and bookkeeping exact; weights within
+    1e-5·(1 + w) on all but 1e-3 of the observed voxels, sdf within 1e-4
+    where the weights agree. index_add_'s atomics sum the bundles and the
+    samples in another order on the card (weights reach 1,200 here).
+    Measured on an H100 in three repeats: 1.2e-4–1.8e-4 of the voxels
+    beyond 1e-5·(1 + w), at most 3.6e-4·(1 + w), none observed on one
+    side only; sdf at most 3.8e-5 apart (1.9e-6 at the 99.9th
+    percentile)."""
+    from coxgraph_tpu_torch.ops import points as pts_ops
+
+    spec = _spec(8)
+    cfg = sm.MapperConfig(spec=spec, integrator=dataclasses.replace(
+        CFG, max_touched_blocks=128), intrinsics=INTR, max_submaps=4,
+        max_history=16, submap_interval=0.15)
+    states = []
+    for device in (gpu, torch.device("cpu")):
+        scene = syn.default_scene(device)
+        traj = syn.orbit_trajectory(4, scene.room_center, radius=2.5,
+                                    sweep=0.3 * np.pi)
+        hm = sm.HostMapper(cfg, device=device)
+        for i in range(4):
+            d, c = syn.render_depth(scene, INTR, traj[i])
+            p = pts_ops.backproject(INTR, d).reshape(-1, 3)
+            hm.step_points(p, c.reshape(-1, 3), d.reshape(-1) > 0.1,
+                           traj[i].cpu().numpy(), 0.1 * i)
+        states.append(hm.state)
+    a, b = (s.collection.layers for s in states)
+    for name in ("block_index", "block_coords", "num_blocks"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
+    assert torch.equal(states[0].mesh_dirty.cpu(), states[1].mesh_dirty)
+    dw = (a.weight.cpu() - b.weight).abs()
+    obs = (a.weight.cpu() > 0) | (b.weight > 0)
+    close = dw <= 1e-5 * (1 + b.weight)
+    assert float((~close[obs]).float().mean()) <= 1e-3
+    same = obs & close
+    assert float((a.sdf.cpu() - b.sdf).abs()[same].max()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["projective", "merged"])
+def test_recover_layer_on_gpu_matches_cpu(gpu, method):
+    """A mesh message recovered on the card ≡ on the CPU: the block set
+    exact, q95 |Δ| of sdf and weight < 5e-3 where both observed."""
+    from coxgraph_tpu_torch.comm import mesh_comm
+
+    spec = _spec(8)
+    _, layer = _card_and_cpu_layer(gpu, spec)
+    traj = _frames(torch.device("cpu"))[2].numpy()
+    msg = mesh_comm.encode_submap_mesh(spec, layer, np.array([0.0, 0.05]),
+                                       traj, INTR, keyframe_stride=1)
+    got, want = (mesh_comm.recover_layer(spec, CFG, INTR, msg, method=method,
+                                         device=d)
+                 for d in (gpu, torch.device("cpu")))
+    for name in ("block_index", "block_coords", "num_blocks"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(want, name))
+    both = (got.weight.cpu() > 0) & (want.weight > 0)
+    assert int(both.sum()) > 1000
+    for name in ("sdf", "weight"):
+        d = (getattr(got, name).cpu() - getattr(want, name)).abs()[both]
+        assert float(torch.quantile(d, 0.95)) < 5e-3, name

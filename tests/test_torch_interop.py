@@ -97,16 +97,24 @@ def test_config_from_copies_every_field():
 
 
 def test_config_from_refuses_unported_fields():
-    """The pointcloud integrator is not ported: a MapperConfig that sets
-    it, or its config itself, is refused. (The local solver is ported:
-    see test_solve_state_and_configs_cross_exactly.)"""
+    """Every config field of the JAX package is ported now: a
+    MapperConfig's point integrator crosses exactly, and only a config
+    class the port does not have is refused."""
     from coxgraph_tpu.ops import points as jpoints
 
-    with pytest.raises(ValueError):
-        interop.config_from(dataclasses.replace(
-            JCFG, point_integrator=jpoints.PointIntegratorConfig()))
+    jp = jpoints.PointIntegratorConfig(band_samples=5, carve_samples=3,
+                                       merge_points=False)
+    cfg = interop.config_from(dataclasses.replace(JCFG,
+                                                  point_integrator=jp))
+    assert dataclasses.asdict(cfg.point_integrator) == \
+        dataclasses.asdict(jp)
+
+    @dataclasses.dataclass(frozen=True)
+    class UnportedConfig:
+        x: int = 0
+
     with pytest.raises(TypeError):
-        interop.config_from(jpoints.PointIntegratorConfig())
+        interop.config_from(UnportedConfig())
 
 
 def test_solve_state_and_configs_cross_exactly():
@@ -159,12 +167,14 @@ def test_solve_state_and_configs_cross_exactly():
 
 
 def test_port_never_imports_jax():
-    """With jax blocked, every module of the port (and chip_smoke.py and
-    the profiling tools and the two-robot demo) imports, and coxgraph_tpu
-    is never reached."""
+    """With jax blocked, and PIL and yaml too (the card's machine has
+    neither), every module of the port (and chip_smoke.py, the profiling
+    tools and the torch examples) imports, and coxgraph_tpu is never
+    reached."""
     code = r"""
 import importlib, os, pkgutil, runpy, sys
-sys.modules["jax"] = None
+for blocked in ("jax", "PIL", "yaml"):
+    sys.modules[blocked] = None
 import coxgraph_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(
     coxgraph_tpu_torch.__path__, "coxgraph_tpu_torch.")]
@@ -175,8 +185,9 @@ for tool in ("profile_torch_integrate.py", "profile_torch_detect.py",
              "profile_torch_serve.py",
              "time_k1_variants.py", "time_k2_variants.py"):
     runpy.run_path(os.path.join("tools", tool), run_name="not_main")
-runpy.run_path(os.path.join("examples", "two_robot_demo_torch.py"),
-               run_name="not_main")
+for example in ("two_robot_demo_torch.py", "distributed_demo_torch.py",
+                "experiment_driver_torch.py", "pointcloud_demo_torch.py"):
+    runpy.run_path(os.path.join("examples", example), run_name="not_main")
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m == "coxgraph_tpu" or m.startswith("coxgraph_tpu.")
     or m == "jax" or m.startswith("jax."))]
@@ -187,4 +198,4 @@ print("imported", len(names))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.split()[-1]) >= 15
+    assert int(out.stdout.split()[-1]) >= 45

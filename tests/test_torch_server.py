@@ -637,14 +637,33 @@ def test_optimize_uses_cached_geometry(world, monkeypatch):
 @pytest.mark.parametrize("call", ["add_submap_mesh", "publish_submap_meshes",
                                   "combined_submap_mesh", "device_mesh"])
 def test_unported_pieces_raise(world, call):
+    """Only the sharded final mesh (parallel/, ROADMAP queue 1 item 5)
+    still raises; the client-pushed mesh calls are ported: a mesh
+    message is cached, published back and combined in the global frame
+    (a mesh whose submap the server does not hold yet is skipped)."""
+    from coxgraph_tpu_torch.comm import mesh_comm
+
     server = port_server(port_clients(world))
-    with pytest.raises(NotImplementedError, match="queue"):
-        if call == "add_submap_mesh":
-            server.add_submap_mesh(0, 0, None)
-        elif call == "device_mesh":
+    if call == "device_mesh":
+        with pytest.raises(NotImplementedError, match="item 5"):
             server.get_final_global_mesh(device_mesh=object())
-        else:
-            getattr(server, call)()
+        return
+    h = server.clients[0].get_submap_by_time(0.0)
+    msg = mesh_comm.encode_submap_mesh(SPEC, h.layer, h.hist_stamps,
+                                       h.hist_poses, CFG.intrinsics,
+                                       client_id=0, submap_id=0)
+    server.add_submap_mesh(0, 0, msg)
+    assert server.publish_submap_meshes() == {(0, 0): msg}
+    verts, faces, cols = server.combined_submap_mesh()
+    assert verts.shape[0] == 0            # submap (0, 0) not pulled yet
+    assert server.map_fusion(true_msg(world, 0, 0))
+    verts, faces, cols = server.combined_submap_mesh()
+    sid = server.cli_ser[(0, 0)]
+    np.testing.assert_allclose(
+        verts, geo.transform_points_np(server.submaps[sid].T_G_submap,
+                                       msg.vertices()), atol=1e-6)
+    np.testing.assert_array_equal(faces, msg.faces)
+    np.testing.assert_array_equal(cols, msg.vcolors)
 
 
 def test_server_needs_a_device_or_the_card(monkeypatch, world):

@@ -481,9 +481,22 @@ def test_keyframe_history_matches_jax(map_servers, keyframes):
 
 
 def test_map_server_submap_mesh_msg_not_ported(map_servers):
-    *_, pserver, pcol = map_servers
-    with pytest.raises(NotImplementedError, match="item 4"):
-        pserver.submap_mesh_msg(pcol, 0, CFG.intrinsics)
+    """Ported now: the map server's mesh message of each submap ≡ the JAX
+    map server's, byte for byte, from the same triangle soup (the soups
+    themselves are held to each other in tests/test_torch_mesh.py)."""
+    from coxgraph_tpu.ops import mesh as jmesh
+    from coxgraph_tpu_torch.comm import mesh_comm
+
+    jserver, jcol, pserver, pcol = map_servers
+    for k in range(int(jcol.num_submaps)):
+        soup = jmesh.extract_mesh(jserver.cfg.spec,
+                                  jsm.get_layer(jcol.layers, k))
+        want = jserver.submap_mesh_msg(jcol, k, tms.CFG.intrinsics,
+                                       client_id=1, soup=soup)
+        got = pserver.submap_mesh_msg(pcol, k, pserver.cfg.intrinsics,
+                                      client_id=1, soup=soup)
+        assert isinstance(got, mesh_comm.MeshWithHistory)
+        assert got.pack() == want.pack() and got.submap_id == k
 
 
 def test_small_two_client_world_matches_jax():

@@ -128,7 +128,10 @@ the native bus, the mesh-with-history transport, point clouds) and fails
                  submap_mesh topic, each recovered on the card with both
                  methods (p90 |SDF| < 2 voxels, > 100 triangles, message
                  < 0.5 × the voxel bytes, "projective" K1 once per
-                 keyframe); examples/pointcloud_demo.py's gates on 24
+                 keyframe); K1 ≡ its twin (phase 3's gate) at the demo's
+                 1,024 lanes on two robot frames and on the recovered
+                 keyframe of most points (a render_points splat);
+                 examples/pointcloud_demo.py's gates on 24
                  shuffled 160×120 clouds, and step_points timed at
                  19,200 and 307,200 points at the bench spec
 
@@ -244,28 +247,32 @@ def _bound_ms(n_bytes: float, ops: float, ops_per_s: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_kernel_vs_twin(cfg, device, depths, colors, traj):
-    """Phase 3 → (max_abs_err, (kernel's pools, twin's pools, the last
-    frame's update arguments)) for the timing."""
+def k1_against_twin(cfg, device, frames, tag: str, icfg=None):
+    """K1 ≡ its plain twin on the same inputs: fresh pools of ``cfg``'s
+    collection for each, every frame of ``frames`` ((k, depth, planar
+    colour (3,H,W), T_sm_cam)) through the allocation pass (slots and
+    block tables must agree), then the kernel and the twin on those
+    lanes; at most 1e-3 of the live voxels may differ by more than 1e-5
+    after each frame. ``icfg`` overrides ``cfg.integrator`` → (max_abs_err,
+    (kernel's pools, twin's pools, the last frame's update arguments))."""
     from coxgraph_tpu_torch.core import geometry as geo
     from coxgraph_tpu_torch.mapper import submap_mapper as sm
     from coxgraph_tpu_torch.ops import cuda_tsdf
     from coxgraph_tpu_torch.ops import tsdf as tsdf_ops
 
-    spec, icfg, intr = cfg.spec, cfg.integrator, cfg.intrinsics
-    k = torch.zeros((), dtype=torch.int32, device=device)
+    spec, intr = cfg.spec, cfg.intrinsics
+    icfg = cfg.integrator if icfg is None else icfg
     lk = sm.create_collection(cfg, device).layers   # kernel's pools
     lt = sm.create_collection(cfg, device).layers   # twin's pools
-    planar = colors.permute(0, 3, 1, 2).contiguous()
     max_err = 0.0
-    for f in range(2):          # fresh pools, then pools with weight
-        T = traj[f]
-        sk, mk = tsdf_ops._alloc_pass(spec, icfg, intr, lk, k, depths[f], T)
-        st, mt = tsdf_ops._alloc_pass(spec, icfg, intr, lt, k, depths[f], T)
+    for f, (k, depth, planar, T) in enumerate(frames):
+        k = torch.full((), k, dtype=torch.int32, device=device)
+        sk, mk = tsdf_ops._alloc_pass(spec, icfg, intr, lk, k, depth, T)
+        st, mt = tsdf_ops._alloc_pass(spec, icfg, intr, lt, k, depth, T)
         assert torch.equal(sk, st) and torch.equal(mk, mt), "slots differ"
         for name in ("block_index", "block_coords", "num_blocks"):
             assert torch.equal(getattr(lk, name), getattr(lt, name)), name
-        args = (k, sk, mk, depths[f], planar[f], geo.inverse(T))
+        args = (k, sk, mk, depth, planar, geo.inverse(T))
         cuda_tsdf.update_blocks(spec, icfg, intr, lk, *args)
         cuda_tsdf.update_blocks_reference(spec, icfg, intr, lt, *args)
         torch.cuda.synchronize()
@@ -278,11 +285,19 @@ def phase_kernel_vs_twin(cfg, device, depths, colors, traj):
             n_big += int((d > 1e-5).sum())
             assert torch.isfinite(getattr(lk, name)).all(), name
         assert n_big <= 1e-3 * n_live, (n_big, n_live)
-        print(f"[3] frame {f}: live blocks {int(mk.sum())}, live voxels "
-              f"{n_live}, max|d| {max_err:.3e}, differing voxels {n_diff}, "
-              f"> 1e-5: {n_big}")
-    assert n_live > 0 and int(mk.sum()) > 0
+        print(f"[{tag}] frame {f}: {sk.shape[0]} lanes, live blocks "
+              f"{int(mk.sum())}, live voxels {n_live}, max|d| "
+              f"{max_err:.3e}, differing voxels {n_diff}, > 1e-5: {n_big}")
+        assert n_live > 0 and int(mk.sum()) > 0
     return max_err, (lk, lt, args)
+
+
+def phase_kernel_vs_twin(cfg, device, depths, colors, traj):
+    """Phase 3: K1 ≡ its twin on the bench point's first two frames (fresh
+    pools, then pools with weight); ``k1_against_twin``'s result."""
+    planar = colors.permute(0, 3, 1, 2).contiguous()
+    return k1_against_twin(cfg, device, [(0, depths[f], planar[f], traj[f])
+                                         for f in range(2)], "3")
 
 
 def k1_cold_pairs(spec, layers, n_live: int):
@@ -1411,14 +1426,18 @@ def phase_two_robot(device, ident):
 
 def phase_distributed(device, ident):
     """Phase 13: the distributed deployment at the two-robot demo's point
-    (robot processes on the card, the native bus, mesh with history), and
-    the point-cloud path."""
+    (robot processes on the card, the native bus, mesh with history), K1
+    against its twin at this path's shapes, and the point-cloud path → K1's
+    largest difference from its twin there."""
+    from coxgraph_tpu_torch.comm import mesh_comm
     from coxgraph_tpu_torch.eval import benchmarks as bm
     from coxgraph_tpu_torch.eval import demos
+    from coxgraph_tpu_torch.frontends import replay
     from coxgraph_tpu_torch.frontends import synthetic as syn
     from coxgraph_tpu_torch.mapper import submap_mapper as sm
     from coxgraph_tpu_torch.ops import cuda_tsdf
     from coxgraph_tpu_torch.ops import points as pts_ops
+    from coxgraph_tpu_torch.utils.tensorops import upload
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
@@ -1479,6 +1498,35 @@ def phase_distributed(device, ident):
         "fusion_accepted", "alignment", "triangles", "pose_history",
         "k1_per_frame", "pulled_equals_robots", "mesh_with_history"}
 
+    # K1 ≡ its twin at this path's shapes (the demo's 1,024 lanes): the
+    # first two frames of robot 0's clip, and the recovered keyframe of
+    # most points, splatted by render_points, at the recovery's constant
+    # weights
+    dcfg = res["config"]
+    replays, _, _ = replay.two_robot_experiment(
+        n_frames=res["frames"], intr=dcfg.intrinsics, dt=demos.DT,
+        device=device)
+    clip = iter(replays[0])
+    robot_frames = []
+    for _ in range(2):
+        f = next(clip)
+        robot_frames.append((0, f.depth, f.color.permute(2, 0, 1)
+                             .contiguous(), upload(f.T_odom_cam, device)))
+    k1_err, _ = k1_against_twin(dcfg, device, robot_frames, "13 robot")
+    msg = res["sample_mesh"]
+    clouds = mesh_comm.decode_to_pointclouds(msg, dcfg.spec.voxel_size)
+    kf = max(clouds, key=lambda i: clouds[i][0].shape[0])
+    depth, color = mesh_comm.render_points(
+        dcfg.intrinsics, upload(clouds[kf][0], device),
+        upload(clouds[kf][1], device))
+    err, _ = k1_against_twin(
+        dcfg, device, [(0, depth, color.permute(2, 0, 1).contiguous(),
+                        upload(msg.kf_poses[kf], device))],
+        "13 recovered keyframe", icfg=dataclasses.replace(
+            dcfg.integrator, use_distance_weight=False))
+    k1_err = max(k1_err, err)
+    torch.cuda.empty_cache()
+
     # (c) point clouds: examples/pointcloud_demo.py at its own point
     pc = demos.pointcloud_demo(device)
     print(f"[13] point-cloud demo: {pc['clouds']} clouds of "
@@ -1512,7 +1560,7 @@ def phase_distributed(device, ident):
           f"{time.perf_counter() - t_phase:.1f} s")
     del hm
     torch.cuda.empty_cache()
-    return res
+    return k1_err
 
 
 def main() -> None:
@@ -1625,7 +1673,7 @@ def main() -> None:
     phase_two_robot(device, ident)
 
     # ---- 13. the distributed deployment ---------------------------------
-    phase_distributed(device, ident)
+    max_err = max(max_err, phase_distributed(device, ident))
 
     print(json.dumps({"kernels": [{
         "name": "tsdf_update_blocks",

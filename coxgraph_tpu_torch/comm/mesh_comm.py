@@ -375,12 +375,7 @@ def recover_layer(spec: vx.VoxelGridSpec, cfg: tsdf_ops.TsdfIntegratorConfig,
         cfg = dataclasses.replace(cfg, use_distance_weight=False)
     clouds = decode_to_pointclouds(msg, interpolate_voxel_size=space)
     layer = vx.create_tsdf_layer(spec, device)
-    pcfg = pts_ops.PointIntegratorConfig(
-        max_range=cfg.max_range, min_range=cfg.min_range,
-        max_weight=cfg.max_weight,
-        max_touched_blocks=cfg.max_touched_blocks,
-        use_distance_weight=cfg.use_distance_weight,
-        use_dropoff=cfg.use_dropoff)
+    pcfg = pts_ops.points_cfg_from(cfg)
     for k in sorted(clouds):
         pts = upload(clouds[k][0], device)
         cols = upload(clouds[k][1], device)

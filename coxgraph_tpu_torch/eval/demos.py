@@ -546,7 +546,8 @@ def distributed_demo(device=None, frames: int = 40, scale: float = 0.25,
     every message is recovered with both methods.
 
     ``configs``: ``demo_configs``' tuple to run instead of the demo's own.
-    → the numbers and ``gates`` (each a bool) and ``ok``."""
+    → the numbers and ``gates`` (each a bool) and ``ok``, the robots'
+    MapperConfig (``config``) and one pushed mesh (``sample_mesh``)."""
     import multiprocessing as mp
 
     from .. import _build, native
@@ -698,6 +699,8 @@ def distributed_demo(device=None, frames: int = 40, scale: float = 0.25,
         rec, mesh_ok = _recover_all(server, cfg, device, sorted(want),
                                     trajs)
         res["recovered"] = rec
+        res["config"] = cfg
+        res["sample_mesh"] = server.mesh_collection[min(want)]
         gates["mesh_with_history"] = mesh_ok
         if device.type == "cuda":
             res["peak_bytes"] = torch.cuda.max_memory_allocated(device)

@@ -269,13 +269,7 @@ def integrate_batch(cfg: MapperConfig, state: MapperState, depths: Tensor,
 def _point_cfg(cfg: MapperConfig) -> points_ops.PointIntegratorConfig:
     if cfg.point_integrator is not None:
         return cfg.point_integrator
-    return points_ops.PointIntegratorConfig(
-        max_range=cfg.integrator.max_range,
-        min_range=cfg.integrator.min_range,
-        max_weight=cfg.integrator.max_weight,
-        max_touched_blocks=cfg.integrator.max_touched_blocks,
-        use_distance_weight=cfg.integrator.use_distance_weight,
-        use_dropoff=cfg.integrator.use_dropoff)
+    return points_ops.points_cfg_from(cfg.integrator)
 
 
 def integrate_points(cfg: MapperConfig, state: MapperState, points: Tensor,
@@ -440,10 +434,12 @@ class HostMapper:
 
     # -- saturation and union counters ----------------------------------
 
-    def _rollover_sat(self, n: Optional[int] = None) -> bool:
+    def _rollover_sat(self, n: Optional[int] = None,
+                      stacklevel: int = 3) -> bool:
         """True (+warn/count) when a due rollover cannot start a new
         submap because the pool is saturated. ``n`` overrides the live
-        submap count (step_batch tracks it locally within a window)."""
+        submap count (step_batch tracks it locally within a window);
+        ``stacklevel`` points the warning at the public step's caller."""
         if (self.n_submaps if n is None else n) < self.cfg.max_submaps:
             return False
         self.dropped_submaps += 1
@@ -451,7 +447,7 @@ class HostMapper:
             f"submap pool saturated ({self.cfg.max_submaps}); rollover "
             f"dropped (total {self.dropped_submaps}) — frames continue "
             f"into the last submap; raise MapperConfig.max_submaps",
-            RuntimeWarning, stacklevel=3)
+            RuntimeWarning, stacklevel=stacklevel)
         return True
 
     def _warn_overflow(self, wm: int, dropped: int) -> None:
@@ -506,25 +502,31 @@ class HostMapper:
         return torch.from_numpy(np.array(x, np.float32)).to(
             self.device, non_blocking=True)
 
+    def _maybe_roll(self, T_odom, T_dev: Tensor, t: float,
+                    t_dev: Tensor) -> bool:
+        """Start a submap at pose ``T_odom`` if there is none yet or the
+        active one's interval elapsed (a saturated pool keeps the active
+        one) → whether one was started."""
+        if (self.n_submaps > 0
+                and t - self.last_start < self.cfg.submap_interval - 1e-6):
+            return False
+        self.last_start = t
+        if self._rollover_sat(stacklevel=4):
+            return False
+        start_submap(self.cfg, self.state, T_dev, t_dev)
+        self.n_submaps += 1
+        self._mirror_start(T_odom, t)
+        return True
+
     def step(self, depth, color, T_odom_cam, t: float) -> bool:
         """Roll the submap if its interval elapsed, then integrate one
         frame. Returns whether a submap was started."""
         if not self.mapping_enabled:
             return False
         self._consume_pending_stats()
-        started = False
         T_dev = self._tensor(T_odom_cam)
         t_dev = torch.full((), t, dtype=torch.float32, device=self.device)
-        if (self.n_submaps == 0
-                or t - self.last_start >= self.cfg.submap_interval - 1e-6):
-            if self._rollover_sat():
-                self.last_start = t
-            else:
-                start_submap(self.cfg, self.state, T_dev, t_dev)
-                self.n_submaps += 1
-                self.last_start = t
-                started = True
-                self._mirror_start(T_odom_cam, t)
+        started = self._maybe_roll(T_odom_cam, T_dev, t, t_dev)
         integrate(self.cfg, self.state, self._tensor(depth),
                   None if color is None else self._tensor(color), T_dev,
                   t_dev)
@@ -540,19 +542,9 @@ class HostMapper:
         if not self.mapping_enabled:
             return False
         self._consume_pending_stats()
-        started = False
         T_dev = self._tensor(T_odom_sensor)
         t_dev = torch.full((), t, dtype=torch.float32, device=self.device)
-        if (self.n_submaps == 0
-                or t - self.last_start >= self.cfg.submap_interval - 1e-6):
-            if self._rollover_sat():
-                self.last_start = t
-            else:
-                start_submap(self.cfg, self.state, T_dev, t_dev)
-                self.n_submaps += 1
-                self.last_start = t
-                started = True
-                self._mirror_start(T_odom_sensor, t)
+        started = self._maybe_roll(T_odom_sensor, T_dev, t, t_dev)
         valid = (valid.to(self.device, torch.bool)
                  if isinstance(valid, Tensor)
                  else torch.from_numpy(np.asarray(valid, bool)).to(

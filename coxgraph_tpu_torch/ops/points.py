@@ -73,6 +73,18 @@ class PointIntegratorConfig:
     merge_points: bool = True          # False = "simple" per-point rays
 
 
+def points_cfg_from(integrator) -> PointIntegratorConfig:
+    """The point integrator at a projective integrator's settings (range,
+    weight cap, lanes, weighting): the mapper's default when its config
+    names none, and the "merged" recovery's."""
+    return PointIntegratorConfig(
+        max_range=integrator.max_range, min_range=integrator.min_range,
+        max_weight=integrator.max_weight,
+        max_touched_blocks=integrator.max_touched_blocks,
+        use_distance_weight=integrator.use_distance_weight,
+        use_dropoff=integrator.use_dropoff)
+
+
 def backproject(intr: PinholeIntrinsics, depth: Tensor) -> Tensor:
     """Depth (H,W) → camera-frame points (H,W,3) at the pixel centres (a
     depth image as a cloud; the JAX package's ``tsdf._backproject``)."""

@@ -832,14 +832,15 @@ def test_render_points_on_gpu_matches_cpu(gpu):
 @pytest.mark.cuda
 def test_step_points_on_gpu_matches_cpu(gpu):
     """HostMapper.step_points over four clouds on the card ≡ on the CPU:
-    the block set, slots and bookkeeping exact; weights within
-    1e-5·(1 + w) on all but 1e-3 of the observed voxels, sdf within 1e-4
-    where the weights agree. index_add_'s atomics sum the bundles and the
+    the block set, slots and bookkeeping exact; every observed voxel's
+    weight within 1e-3·(1 + w), and at most 1e-3 of them beyond
+    1e-5·(1 + w); sdf within 1e-4 and colour within 5e-5 wherever both
+    observed the voxel. index_add_'s atomics sum the bundles and the
     samples in another order on the card (weights reach 1,200 here).
-    Measured on an H100 in three repeats: 1.2e-4–1.8e-4 of the voxels
-    beyond 1e-5·(1 + w), at most 3.6e-4·(1 + w), none observed on one
-    side only; sdf at most 3.8e-5 apart (1.9e-6 at the 99.9th
-    percentile)."""
+    Measured on an H100 in three repeats, the same each time: at most
+    3.6e-4·(1 + w) (6.7e-3 absolute), 1.8e-4 of the voxels beyond
+    1e-5·(1 + w), none observed on one side only; sdf at most 3.8e-5
+    and colour 1.7e-5 apart."""
     from coxgraph_tpu_torch.ops import points as pts_ops
 
     spec = _spec(8)
@@ -862,19 +863,26 @@ def test_step_points_on_gpu_matches_cpu(gpu):
     for name in ("block_index", "block_coords", "num_blocks"):
         assert torch.equal(getattr(a, name).cpu(), getattr(b, name))
     assert torch.equal(states[0].mesh_dirty.cpu(), states[1].mesh_dirty)
-    dw = (a.weight.cpu() - b.weight).abs()
-    obs = (a.weight.cpu() > 0) | (b.weight > 0)
-    close = dw <= 1e-5 * (1 + b.weight)
-    assert float((~close[obs]).float().mean()) <= 1e-3
-    same = obs & close
-    assert float((a.sdf.cpu() - b.sdf).abs()[same].max()) <= 1e-4
+    aw = a.weight.cpu()
+    dw = (aw - b.weight).abs()
+    obs = (aw > 0) | (b.weight > 0)
+    assert bool((dw <= 1e-3 * (1 + b.weight))[obs].all()), float(
+        (dw / (1 + b.weight))[obs].max())
+    assert float((dw > 1e-5 * (1 + b.weight))[obs].float().mean()) <= 1e-3
+    both = (aw > 0) & (b.weight > 0)
+    assert float((a.sdf.cpu() - b.sdf).abs()[both].max()) <= 1e-4
+    v3 = aw.shape[-1]
+    dc = (a.color.cpu() - b.color).abs().reshape(aw.shape[:-1] + (3, v3))
+    assert float(dc.amax(-2)[both].max()) <= 5e-5
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("method", ["projective", "merged"])
 def test_recover_layer_on_gpu_matches_cpu(gpu, method):
     """A mesh message recovered on the card ≡ on the CPU: the block set
-    exact, q95 |Δ| of sdf and weight < 5e-3 where both observed."""
+    exact, sdf and weight within 5e-3 wherever both observed (measured on
+    an H100: "projective" equal; "merged" at most 2.9e-6 and 3.3e-4, with
+    weights up to 119)."""
     from coxgraph_tpu_torch.comm import mesh_comm
 
     spec = _spec(8)
@@ -891,4 +899,4 @@ def test_recover_layer_on_gpu_matches_cpu(gpu, method):
     assert int(both.sum()) > 1000
     for name in ("sdf", "weight"):
         d = (getattr(got, name).cpu() - getattr(want, name)).abs()[both]
-        assert float(torch.quantile(d, 0.95)) < 5e-3, name
+        assert float(d.max()) < 5e-3, (name, float(d.max()))

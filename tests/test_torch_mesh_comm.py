@@ -10,8 +10,10 @@ colours are exact and the vertices within 2e-4 m. Decoded clouds within
 1e-6. ``render_points``: depth exact, colour equal wherever a pixel's
 nearest point is unique (the port takes the lowest index among equal z;
 the reference's scatter order picks another). ``recover_layer``: the same
-block set, and q95 |Δ| of sdf and weight < 5e-3 where both observed (the
-repo's tolerance between kernel paths, tests/test_pallas_tsdf.py:97-105).
+block set, and sdf and weight within 5e-3 where both observed (the repo's
+tolerance between kernel paths, tests/test_pallas_tsdf.py:97-105), but
+for the few merged voxels a boundary sample moves
+(``test_recover_layer_matches_jax`` states their bound).
 The "merged" method is held to the reference with its bundle validity
 corrected (tests/test_torch_points.py)."""
 
@@ -167,6 +169,14 @@ def test_render_points_matches_jax():
 
 @pytest.mark.parametrize("method", ["projective", "merged"])
 def test_recover_layer_matches_jax(method, fixed_reference):
+    """The same block set; where both observed a voxel, sdf within 5e-3
+    everywhere, and weight within 5e-3 everywhere for "projective". The
+    merged weights sum whole bundles (up to 206 here): a band sample on a
+    voxel boundary, placed in the neighbour by XLA's fused multiply-adds,
+    moves one bundle's weight (tests/test_torch_points.py), so there at
+    most 2e-4 of the voxels may pass 5e-3, and none 10 (measured: 4 of
+    51,518 voxels, at most 4.0; sdf at most 4.0e-3, projective weight
+    1.3e-5)."""
     want = jmc.recover_layer(tmc.SPEC, tmc.CFG, tmc.INTR, jax_msg(2),
                              method=method)
     g = interop.layer_to_numpy(port_recovered(method))
@@ -177,9 +187,14 @@ def test_recover_layer_matches_jax(method, fixed_reference):
     both = (jw > 0) & (pw > 0)
     iou = both.sum() / ((jw > 0) | (pw > 0)).sum()
     assert iou > 0.99, iou
-    for name in ("sdf", "weight"):
-        d = np.abs(g[name] - np.asarray(getattr(want, name)))[both]
-        assert np.quantile(d, 0.95) < 5e-3, (name, np.quantile(d, 0.95))
+    ds = np.abs(g["sdf"] - np.asarray(want.sdf))[both]
+    assert ds.max() < 5e-3, ds.max()
+    dw = np.abs(pw - jw)[both]
+    if method == "projective":
+        assert dw.max() < 5e-3, dw.max()
+    else:
+        assert (dw >= 5e-3).mean() <= 2e-4 and dw.max() < 10.0, (
+            (dw >= 5e-3).sum(), dw.max())
 
 
 @pytest.mark.parametrize("method", ["projective", "merged"])

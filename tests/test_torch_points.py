@@ -12,13 +12,20 @@ the parity tests hold the port to the reference with that one line
 corrected (``fixed_reference``), never to the fault.
 
 Tolerances: bundles, the allocated block set (block_index, block_coords,
-num_blocks) and the slots are identical. Weights agree within 1e-5 on all
-but 1e-4 of the observed voxels of one cloud (1e-3 after the mapper's
-eight; 4.0e-4 measured); sdf within 1e-5 and colour within 1e-4
-where both packages observed a voxel with the same weight. The few
-voxels apart are samples on a voxel boundary, placed differently by XLA's
-fused multiply-adds (ROADMAP queue 3's parity notes); with the drop-off
-ramp and distance weights off the weights are equal."""
+num_blocks) and the slots are identical. A few voxels part where a band
+sample sits on a voxel boundary and XLA's fused multiply-adds place it
+in the neighbour (ROADMAP queue 3's parity notes): that moves one
+bundle's weight, and shifts the weighted means of both voxels. So every
+voxel has a bound, at least 2.3× the largest difference measured on the
+CPU, and most have a tight one. One cloud: every observed voxel's
+weight within 0.05 (measured at most 0.0203, beside weights up to 0.40),
+at most 1e-4 of them beyond 1e-5 (measured 5.8e-5); sdf within 1e-5
+(4.3e-6) and colour within 1e-4 (1.8e-5) wherever both packages observed
+a voxel. After the mapper's eight clouds: weights within 0.5 (0.20,
+beside weights up to 314), at most 1e-3 beyond 1e-5 (4.0e-4); where
+both observed, sdf within 0.05 (0.018) and colour within 0.015
+(0.0053), and within 1e-5 and 1e-4 where the weights agree. With the
+drop-off ramp and distance weights off the weights are equal."""
 
 import dataclasses
 
@@ -88,26 +95,32 @@ def fixed_reference(monkeypatch):
         jsm.integrate_points_impl, static_argnums=0, donate_argnums=1))
 
 
-def assert_layers_match(got, want, apart=1e-4):
-    """``got`` (port numpy dict) ≡ ``want`` (JAX layer) at the module's
-    tolerances; ``apart``: the share of observed voxels whose weights may
-    differ by more than 1e-5."""
+def assert_layers_match(got, want, apart=1e-4, w_tol=0.05, sdf_tol=1e-5,
+                        col_tol=1e-4):
+    """``got`` (port numpy dict) ≡ ``want`` (JAX layer): the block set
+    exact; every observed voxel's weight within ``w_tol``, and at most
+    ``apart`` of them beyond 1e-5; sdf within ``sdf_tol`` and colour
+    within ``col_tol`` wherever both observed the voxel, and within 1e-5
+    and 1e-4 wherever the weights agree too."""
     for name in ("block_index", "block_coords", "num_blocks"):
         np.testing.assert_array_equal(got[name], np.asarray(getattr(want,
                                                                     name)))
     jw, pw = np.asarray(want.weight), got["weight"]
     dw = np.abs(jw - pw)
     obs = (jw > 0) | (pw > 0)
+    assert dw[obs].max() <= w_tol, dw[obs].max()
     assert (dw[obs] > 1e-5).mean() <= apart, (dw[obs] > 1e-5).mean()
-    same = (jw > 0) & (pw > 0) & (dw <= 1e-5)
-    np.testing.assert_allclose(got["sdf"][same],
-                               np.asarray(want.sdf)[same], atol=1e-5, rtol=0)
+    both = (jw > 0) & (pw > 0)
     v3 = jw.shape[-1]
-    jc = np.asarray(want.color).reshape(jw.shape[:-1] + (3, v3))
-    pc = got["color"].reshape(jc.shape)
-    np.testing.assert_allclose(
-        np.moveaxis(pc, -2, -1)[same], np.moveaxis(jc, -2, -1)[same],
-        atol=1e-4, rtol=0)
+    jc = np.moveaxis(np.asarray(want.color).reshape(jw.shape[:-1] + (3, v3)),
+                     -2, -1)
+    pc = np.moveaxis(got["color"].reshape(jw.shape[:-1] + (3, v3)), -2, -1)
+    jsdf = np.asarray(want.sdf)
+    for mask, s_tol, c_tol in ((both, sdf_tol, col_tol),
+                               (both & (dw <= 1e-5), 1e-5, 1e-4)):
+        np.testing.assert_allclose(got["sdf"][mask], jsdf[mask], atol=s_tol,
+                                   rtol=0)
+        np.testing.assert_allclose(pc[mask], jc[mask], atol=c_tol, rtol=0)
 
 
 def _bundle_inputs():
@@ -261,7 +274,8 @@ def test_step_points_matches_jax(fixed_reference):
         assert_layers_match(
             interop.layer_to_numpy(sm.get_layer(pm.state.collection.layers,
                                                 k)),
-            jsm._get_layer(jm.state.collection.layers, k), apart=1e-3)
+            jsm._get_layer(jm.state.collection.layers, k), apart=1e-3,
+            w_tol=0.5, sdf_tol=0.05, col_tol=0.015)
     assert pm.host_submaps and len(pm.host_submaps) == pm.n_submaps
 
 

@@ -17,7 +17,10 @@ block_index, block_coords and num_blocks and the triangles' count and
 order exact, sdf / weight / colour within 1e-4 (observed 7.2e-6),
 vertices within one quantum of the mesh's uint16 grid plus one f32
 rounding (observed: one quantum, 2.2e-4 m) and colours within one uint8
-step.
+step. Client-pushed meshes after the sequence (one JAX message, seeded
+ones, one for a submap neither server holds): published bytes
+identical, the combination's faces and colours exact in both colour
+modes, each vertex within the pose tolerance.
 
 The other tests hold the port alone to the behaviour test_server.py
 checks in the JAX package (future queue, refuse intervals, same-client
@@ -632,6 +635,76 @@ def test_optimize_uses_cached_geometry(world, monkeypatch):
     assert len(q["aabbs"]) == len(server.submaps)
     assert q["resources"]["rss_mb"] > 1.0
     assert q["resources"]["cpu_pct"] >= 0.0
+
+
+def _mesh_messages(jserver):
+    """Client-pushed meshes for both servers → {(cid, csid): packed
+    bytes}: JAX's MeshWithHistory of client 0's first held submap
+    (encoded from the JAX server's pulled layer), seeded messages for
+    the other held submaps, and one for a submap neither server holds
+    (skipped by the combination)."""
+    from coxgraph_tpu.comm import mesh_comm as jmc
+
+    keys = sorted(jserver.cli_ser)
+    s = jserver.submaps[jserver.cli_ser[keys[0]]]
+    out = {keys[0]: jmc.encode_submap_mesh(
+        ts.SPEC, s.layer, np.asarray(s.hist_stamps),
+        np.asarray(s.hist_poses), ts.CFG.intrinsics, client_id=keys[0][0],
+        submap_id=keys[0][1]).pack()}
+    rng = np.random.RandomState(5)
+    for cid, csid in keys[1:] + [(1, 99)]:
+        nv, nf = rng.randint(3, 40), rng.randint(1, 30)
+        out[(cid, csid)] = jmc.MeshWithHistory(
+            cid, csid, 0.0, 1.0, rng.uniform(-2, 2, 3).astype(np.float32),
+            float(rng.uniform(1e-4, 1e-3)),
+            rng.randint(0, 4000, (nv, 3)).astype(np.uint16),
+            rng.randint(0, 256, (nv, 3)).astype(np.uint8),
+            rng.randint(0, nv, (nf, 3)).astype(np.uint32),
+            np.zeros((nf, 1, 2), np.uint16), np.zeros(1),
+            np.array([[1, 0, 0, 0, 0, 0, 0]], np.float32)).pack()
+    return out
+
+
+def test_combined_submap_mesh_matches_jax(sequence):
+    """One set of client-pushed mesh messages into the JAX server and the
+    port's after the fusion sequence: publish_submap_meshes gives back the
+    same messages, and combined_submap_mesh in both colour modes gives
+    faces and colours exact and each vertex within the file's pose
+    tolerance (1e-3 m + 1e-3 rad times its distance from its submap's
+    origin; observed at most 7.1e-5 m, 2.7% of the bound)."""
+    from coxgraph_tpu.comm import mesh_comm as jmc
+    from coxgraph_tpu_torch.comm import mesh_comm
+
+    _, _, jserver, pserver = sequence
+    msgs = _mesh_messages(jserver)
+    assert len(msgs) >= 3 and (1, 99) not in jserver.cli_ser
+    for (cid, csid), buf in msgs.items():
+        jserver.add_submap_mesh(cid, csid, jmc.MeshWithHistory.unpack(buf))
+        pserver.add_submap_mesh(cid, csid,
+                                mesh_comm.MeshWithHistory.unpack(buf))
+    try:
+        jpub, ppub = (s.publish_submap_meshes() for s in (jserver, pserver))
+        assert set(ppub) == set(jpub) == set(msgs)
+        for key, buf in msgs.items():
+            assert ppub[key].pack() == jpub[key].pack() == buf
+        held = [mesh_comm.MeshWithHistory.unpack(msgs[k]).vertices()
+                for k in sorted(msgs) if k in jserver.cli_ser]
+        reach = np.linalg.norm(np.concatenate(held), axis=1)
+        for mode in (0, 1):
+            jv, jf, jc = jserver.combined_submap_mesh(color_mode=mode)
+            pv, pf, pc = pserver.combined_submap_mesh(color_mode=mode)
+            assert pf.dtype == jf.dtype and pc.dtype == jc.dtype
+            np.testing.assert_array_equal(pf, jf)
+            np.testing.assert_array_equal(pc, jc)
+            assert pv.dtype == jv.dtype and pv.shape == (reach.shape[0], 3)
+            assert jv.shape == pv.shape and jf.shape[0] > 100
+            err = np.linalg.norm(pv - jv, axis=1)
+            assert (err <= 1e-3 + 1e-3 * reach).all(), err.max()
+        assert np.unique(pc.reshape(-1, 3), axis=0).tolist() == [
+            [0, 255, 0], [255, 0, 0]]             # mode 1: two clients
+    finally:
+        jserver.mesh_collection.clear()
+        pserver.mesh_collection.clear()
 
 
 @pytest.mark.parametrize("call", ["add_submap_mesh", "publish_submap_meshes",

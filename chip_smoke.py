@@ -12,9 +12,11 @@ Hamming kernel K2 → RANSAC), its serving path (step_batch, then live
 meshing, ESDF and layer merge, in plain torch), its solve path (LM
 pose graph, dense registration, the two-phase global optimize, in plain
 torch), its collaborative server tier (two robots through
-VIOInterface, the loop detector and the fusion server) and its
+VIOInterface, the loop detector and the fusion server), its
 distributed deployment (robot processes on the card serving submaps over
-the native bus, the mesh-with-history transport, point clouds) and fails
+the native bus, the mesh-with-history transport, point clouds) and its
+parallel tier (an 8-robot fleet, the distributed solve, the sharded ESDF,
+merge and mesh over torch.distributed) and fails
 (nonzero exit, no result line) if anything is wrong:
 
   1. device    — require a CUDA GPU; print nvidia-smi's name and power limit
@@ -134,6 +136,29 @@ the native bus, the mesh-with-history transport, point clouds) and fails
                  examples/pointcloud_demo.py's gates on 24
                  shuffled 160×120 clouds, and step_points timed at
                  19,200 and 307,200 points at the bench spec
+
+ 14. parallel  — the parallel tier (parallel/, eval.dryrun) on a
+                 world-size-1 NCCL group (FileStore in a temporary
+                 directory): 8 robots at the bench point (0.67 GB of pools
+                 each), each orbiting its own sector, 30 fleet_steps under
+                 sync-debug error (K1 launched 240 times, 8 on the trace of
+                 one step), 3 submaps a robot, each robot ≡ its mapper_step
+                 run alone (integers equal, phase 3's gate); K1 ≡ its twin
+                 at the fleet's shapes; fleet_optimize from drifted submap
+                 poses with the dry run's closures (the pose error falls, LM
+                 iterations add no host sync, ≡ a CPU gloo world-1 run
+                 within 1e-4 m / rad, the counted collective bytes beside
+                 ici_bytes_per_optimize); the sharded ESDF ≡ esdf_from_tsdf
+                 bit for bit on robot 0's first submap and on the dry run's
+                 sphere (8 slabs); the sharded merge of the fleet's 24
+                 submaps into a doubled pool within test_merge_sharded.py's
+                 gates of the merge_layer_into loop, its sharded mesh ≡
+                 extract_mesh(quantize=False); phase 12's server's final
+                 mesh with device_mesh against its unsharded one (merged
+                 layers within the gates, triangles matched within one
+                 uint16 quantum); dryrun_multichip(8) at world size 1 and
+                 over two gloo ranks spawned on the card (poses within
+                 1e-5, ESDF equal, merge within the gates)
 
 The line before the last is the card's nvidia-smi name and power limit,
 the one before it the kernels' JSON record; the last line is
@@ -1315,7 +1340,8 @@ def small_world_card_vs_cpu(device, height: float = 0.0, **cfg_kw):
 
 def phase_two_robot(device, ident):
     """Phase 12: the collaborative server tier through the port of
-    examples/two_robot_demo.py at the demo's own operating point."""
+    examples/two_robot_demo.py at the demo's own operating point → the
+    demo's server (phase 14 meshes it once more)."""
     from coxgraph_tpu_torch.eval import demos
     from coxgraph_tpu_torch.frontends import synthetic as syn
     from coxgraph_tpu_torch.ops import cuda_hamming, cuda_tsdf
@@ -1399,7 +1425,7 @@ def phase_two_robot(device, ident):
     print(f"[12] control-off fusion: {pull_syncs} host syncs pulling its "
           f"submaps, {fusion_syncs} on held submaps")
     assert ok1 and ok2 and fusion_syncs == 0, (ok1, ok2, fusion_syncs)
-    del probe, demo, server
+    del probe, demo
     torch.cuda.empty_cache()
 
     # the server's optimize, card vs CPU, on tests/test_server.py's world:
@@ -1421,7 +1447,7 @@ def phase_two_robot(device, ident):
     for key in ("level, registration weight 0", "orbits raised 0.3 m"):
         dt, dr = errs[key][:2]
         assert dt <= 1e-4 and dr <= 1e-4, (key, dt, dr)
-    return res
+    return server
 
 
 def phase_distributed(device, ident):
@@ -1563,6 +1589,368 @@ def phase_distributed(device, ident):
     return k1_err
 
 
+FLEET_ROBOTS = 8               # phase 14: robots at the bench point
+FLEET_FRAMES = 30              # frames a robot
+FLEET_DT = 0.05                # s between frames
+FLEET_INTERVAL = 0.5           # s: submaps open at t = 0, 0.5 and 1.0
+DRYRUN_ROBOTS = 8              # the dry run's own point (eval.dryrun)
+
+
+def _state_diff(a, b):
+    """(integer fields that differ, float fields' max |Δ|, live voxels
+    differing by more than 1e-5, live voxels) between two MapperStates."""
+    from coxgraph_tpu_torch.utils import interop
+
+    fa, fb = interop.flatten(a), interop.flatten(b)
+    bad_int, max_d, n_big = [], 0.0, 0
+    for k, x in fa.items():
+        y = fb[k]
+        if x.is_floating_point():
+            d = (x - y).abs()
+            max_d = max(max_d, float(d.max()))
+            if k.startswith("collection.layers."):
+                n_big += int((d > 1e-5).sum())
+        elif not torch.equal(x, y):
+            bad_int.append(k)
+    return bad_int, max_d, n_big, int((a.collection.layers.weight > 0).sum())
+
+
+def _merge_gates(a, b):
+    """test_merge_sharded.py's gates between two fused layers on the blocks
+    both allocated → (max |Δw|, max |Δsdf|, max |Δcolour|) on the voxels
+    both observe; asserts the gates (1e-5, 1e-4, 2e-2)."""
+    ia, ib = a.block_index.reshape(-1), b.block_index.reshape(-1)
+    sel = (ia >= 0) & (ib >= 0)
+    sa, sb = ia[sel].long(), ib[sel].long()
+    wa, wb = a.weight[sa], b.weight[sb]
+    live = wb > 1e-6
+    dw = float((wa - wb).abs().max())
+    ds = float((a.sdf[sa] - b.sdf[sb]).abs()[live].max())
+    dc = float((a.color[sa] - b.color[sb]).abs()[live.repeat(1, 3)].max())
+    assert dw <= 1e-5 and ds <= 1e-4 and dc <= 2e-2, (dw, ds, dc)
+    assert abs(float(wa.sum()) - float(a.weight.sum())) <= 1e-6 * float(
+        a.weight.sum()) + 1e-3
+    return dw, ds, dc
+
+
+def _matched_triangles(a, b, atol: float) -> int:
+    """Triangles of soup ``a`` (T,3,3) that have their own triangle in
+    ``b`` with every coordinate within ``atol``."""
+    from scipy.spatial import cKDTree
+
+    d, idx = cKDTree(b.reshape(len(b), -1)).query(a.reshape(len(a), -1),
+                                                   p=np.inf)
+    ok = d <= atol
+    return int(min(ok.sum(), len(np.unique(idx[ok]))))
+
+
+def deterministic_dryrun(n: int, device, mesh=None):
+    """eval.dryrun.dryrun_multichip(n) under
+    ``torch.use_deterministic_algorithms(True)`` (phase 14 runs it here
+    and in spawned ranks)."""
+    from coxgraph_tpu_torch.eval import dryrun
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        return dryrun.dryrun_multichip(n, device, mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def phase_parallel(device, ident, server):
+    """Phase 14: the parallel tier (parallel/, eval.dryrun) on a world-size-1
+    NCCL group: the 8-robot fleet at the bench point, fleet_optimize, the
+    sharded ESDF, the sharded merge and mesh, the dry run over two gloo
+    ranks on the card, and phase 12's server's sharded final mesh → (K1
+    launches on the fleet path, K1's largest difference from its twin at
+    the fleet's shapes)."""
+    from coxgraph_tpu_torch.core import geometry as geo
+    from coxgraph_tpu_torch.core import voxel as vx
+    from coxgraph_tpu_torch.eval import benchmarks as bm
+    from coxgraph_tpu_torch.eval import dryrun
+    from coxgraph_tpu_torch.frontends import synthetic as syn
+    from coxgraph_tpu_torch.mapper import submap_mapper as sm
+    from coxgraph_tpu_torch.ops import cuda_tsdf
+    from coxgraph_tpu_torch.ops import esdf as esdf_ops
+    from coxgraph_tpu_torch.ops import merge as merge_ops
+    from coxgraph_tpu_torch.ops import mesh as mesh_ops
+    from coxgraph_tpu_torch.parallel import esdf_sharded as es
+    from coxgraph_tpu_torch.parallel import fleet as fl
+    from coxgraph_tpu_torch.parallel import merge_sharded as msh
+    from coxgraph_tpu_torch.parallel import multihost
+    from coxgraph_tpu_torch.solver import pose_graph as pg
+    from coxgraph_tpu_torch.utils.tensorops import upload
+
+    t_phase = time.perf_counter()
+    R, F = FLEET_ROBOTS, FLEET_FRAMES
+    cfg = dataclasses.replace(bm._mapper_config(),
+                              submap_interval=FLEET_INTERVAL)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # each robot orbits its own sector of the room, rendered on the card
+    scene = syn.default_scene(device)
+    traj = torch.stack([syn.orbit_trajectory(
+        F, scene.room_center, radius=2.5, sweep=2 * np.pi / R,
+        start_angle=2 * np.pi * r / R) for r in range(R)], 1)  # (F,R,7)
+    frames = [syn.render_depth(scene, cfg.intrinsics, traj[f, r])
+              for f in range(F) for r in range(R)]
+    depths = torch.stack([d for d, _ in frames]).reshape(
+        F, R, *frames[0][0].shape)
+    colors = torch.stack([c for _, c in frames]).reshape(
+        F, R, *frames[0][1].shape)
+    del frames
+    ts = [torch.full((R,), FLEET_DT * f, device=device) for f in range(F)]
+
+    with multihost.single_process(device):
+        mesh = fl.make_robot_mesh(R, device)
+        print(f"[14] world-size-1 {torch.distributed.get_backend()} group "
+              f"on {device}; {R} robots × {F} frames at "
+              f"{cfg.intrinsics.width}×{cfg.intrinsics.height}, "
+              f"{cfg.max_submaps} submaps × {cfg.spec.max_blocks} blocks a "
+              f"robot, submap interval {FLEET_INTERVAL} s")
+
+        # ---- (1) the fleet at the bench point, sync-free ----------------
+        fleet = fl.shard_fleet(fl.create_fleet(cfg, R, device), mesh)
+        pool_gb = sum(sum(t.numel() * t.element_size() for t in (
+            st.collection.layers.sdf, st.collection.layers.weight,
+            st.collection.layers.color)) for st in fleet.states) / 1e9
+        torch.cuda.synchronize()
+        cuda_tsdf.LAUNCHES = 0
+        t0 = time.perf_counter()
+        no_sync(lambda: [fl.fleet_step(cfg, mesh, fleet, depths[f],
+                                       colors[f], traj[f], ts[f])
+                         for f in range(F)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fleet_launches = cuda_tsdf.LAUNCHES
+        nsub = [int(st.collection.num_submaps) for st in fleet.states]
+        nblk = [st.collection.layers.num_blocks.tolist()
+                for st in fleet.states]
+        print(f"[14] fleet_step × {F}: {R * F} robot frames in "
+              f"{wall:.3f} s ({R * F / wall:.1f} frames/s, first call, "
+              f"under sync-debug error), K1 launches {fleet_launches}, "
+              f"submaps {nsub}, blocks per submap {nblk}, pools "
+              f"{pool_gb:.2f} GB — {ident}")
+        assert fleet_launches == R * F, fleet_launches
+        assert nsub == [3] * R, nsub
+        # each robot ≡ the same robot alone through mapper_step
+        worst = (0.0, 0)
+        for r in range(R):
+            st = sm.create_mapper(cfg, device)
+            for f in range(F):
+                sm.mapper_step(cfg, st, depths[f, r], colors[f, r],
+                               traj[f, r], FLEET_DT * f)
+            bad, max_d, n_big, n_live = _state_diff(fleet.states[r], st)
+            assert not bad, (r, bad)
+            assert n_big <= 1e-3 * n_live, (r, n_big, n_live)
+            worst = max(worst, (max_d, n_big))
+            del st
+        print(f"[14] each robot ≡ its mapper_step run alone: integers "
+              f"equal, max |Δ| {worst[0]:.3e}, live voxels > 1e-5 apart "
+              f"{worst[1]}")
+        # K1 kernels on the trace of a fleet step (a fresh fleet's first),
+        # and K1 ≡ its twin at the fleet's shapes (robot 0's first frames)
+        fresh = fl.shard_fleet(fl.create_fleet(cfg, R, device), mesh)
+        step_kernels = profiled(lambda: fl.fleet_step(
+            cfg, mesh, fresh, depths[0], colors[0], traj[0], ts[0]))[4]
+        k1_traced = sum(e.count for e in step_kernels
+                        if "tsdf_update_blocks" in e.key)
+        del fresh
+        print(f"[14] a fleet step traced (torch.profiler): {k1_traced} K1 "
+              f"kernels")
+        assert k1_traced == R, k1_traced
+        planar = colors[:2, 0].permute(0, 3, 1, 2).contiguous()
+        k1_err, _ = k1_against_twin(cfg, device, [
+            (0, depths[f, 0], planar[f],
+             geo.relative(traj[0, 0], traj[f, 0])) for f in range(2)],
+            "14 fleet")
+
+        # ---- (2) fleet_optimize with drifted submap poses ----------------
+        S = cfg.max_submaps
+        true = torch.stack([st.collection.T_odom_submap.clone()
+                            for st in fleet.states])            # (R,S,7)
+        rng = np.random.default_rng(11)
+        noise = rng.normal(0, [0.01] * 3 + [0.03] * 3, (R, S, 6))
+        noise[0, 0] = 0.0                                       # the gauge
+        drifted = geo.compose(true, geo.se3_exp(upload(
+            noise.astype(np.float32), device)))
+        for r, st in enumerate(fleet.states):
+            st.collection.T_odom_submap.copy_(drifted[r])
+        inter = pg.RelPoseConstraints.empty(2 * R + 4, device)
+        eye = 10.0 * torch.eye(6, device=device)
+        for r in range(R):
+            inter = inter.add(r * S, r * S + 2, geo.relative(
+                true[r, 0], true[r, 2]), eye)
+        for r in range(R - 1):
+            inter = inter.add(r * S, (r + 1) * S, geo.relative(
+                true[r, 0], true[r + 1, 0]), eye)
+        scfg = pg.SolverConfig(iterations=10)
+        live = torch.zeros((R, S), dtype=torch.bool, device=device)
+        live[:, :3] = True
+        err0 = _pose_errors(drifted[live], true[live])
+        comm = multihost.fleet_optimize_comm_bytes(cfg, mesh, fleet, inter,
+                                                   scfg)
+        ici = fl.ici_bytes_per_optimize(cfg, R, scfg)
+        syncs = {}
+        for iters in (0, scfg.iterations):
+            _, syncs[iters] = count_syncs(lambda: fl.fleet_optimize(
+                cfg, mesh, fleet, inter,
+                dataclasses.replace(scfg, iterations=iters)))
+            for r, st in enumerate(fleet.states):
+                st.collection.T_odom_submap.copy_(drifted[r])
+        (_, poses), opt_ms = _fenced_ms(lambda: fl.fleet_optimize(
+            cfg, mesh, fleet, inter, scfg))
+        got = poses.reshape(R, S, 7)
+        err1 = _pose_errors(got[live], true[live])
+        # the same problem on the CPU, a gloo world-1 group beside NCCL's
+        cpu = torch.device("cpu")
+        cmesh = fl.make_robot_mesh(R, cpu, torch.distributed.new_group(
+            backend="gloo"))
+        cfleet = fl.Fleet([fl._moved(dataclasses.replace(
+            st, collection=dataclasses.replace(
+                st.collection, T_odom_submap=drifted[r])), cpu)
+            for r, st in enumerate(fleet.states)], 0, R)
+        _, cposes = fl.fleet_optimize(cfg, cmesh, cfleet, fl._moved(
+            inter, cpu), scfg)
+        dcpu = _pose_errors(poses.cpu(), cposes)
+        print(f"[14] fleet_optimize ({R * S} poses, {scfg.iterations} LM "
+              f"iterations): pose error to the truth {err0[0]:.4f} m / "
+              f"{err0[1]:.4f} rad → {err1[0]:.2e} m / {err1[1]:.2e} rad in "
+              f"{opt_ms:.1f} ms; host syncs {syncs[0]} with 0 iterations, "
+              f"{syncs[scfg.iterations]} with {scfg.iterations}; card ≡ CPU "
+              f"within {dcpu[0]:.2e} m / {dcpu[1]:.2e} rad; collective bytes "
+              f"counted {comm} vs ici_bytes_per_optimize {ici} — {ident}")
+        assert err1[0] < err0[0] and err1[1] < err0[1], (err0, err1)
+        assert syncs[scfg.iterations] == syncs[0], syncs
+        assert dcpu[0] <= 1e-4 and dcpu[1] <= 1e-4, dcpu
+        assert comm["per_iteration"] == {
+            "all_reduce": ici["per_iteration_bytes"] - 4,
+            "all_gather": 4 * R}, comm
+        del cfleet, cmesh
+
+        # ---- (3) the sharded ESDF ≡ the single-device ESDF ---------------
+        spec = cfg.spec
+        layer = sm.get_layer(fleet.states[0].collection.layers, 0)
+        sphere_spec = dataclasses.replace(dryrun.dryrun_config().spec,
+                                          max_blocks=640)
+        sphere = dryrun.sphere_layer(sphere_spec, device)
+        for tag, sp, la, ecfg in (
+                ("robot 0's submap 0", spec, layer, esdf_ops.EsdfConfig()),
+                ("the dry run's sphere", sphere_spec, sphere,
+                 esdf_ops.EsdfConfig(max_distance=1.5))):
+            D = R
+            cfg_d = es.fitted_config(sp, la, D, ecfg)
+            (parts, part_ms) = _fenced_ms(
+                lambda: es.partition_blocks(sp, la, D, cfg_d))
+            d_sh, sh_ms = _fenced_ms(
+                lambda: es.esdf_sharded(sp, mesh, parts, cfg_d))
+            ref, ref_ms = _fenced_ms(
+                lambda: esdf_ops.esdf_from_tsdf(sp, la, ecfg))
+            got = es.gather_to_layer(sp, la, parts, d_sh, mesh)
+            n = int(la.num_blocks)
+            same = torch.equal(got.dist[:n], ref.dist[:n])
+            print(f"[14] sharded ESDF of {tag} ({n} blocks, {D} slabs of "
+                  f"{cfg_d.per_device_blocks} + 2 × {cfg_d.halo_blocks} "
+                  f"halo): {sh_ms:.1f} ms (partition on the host "
+                  f"{part_ms:.1f} ms) vs esdf_from_tsdf {ref_ms:.1f} ms; "
+                  f"bit-identical {same} — {ident}")
+            assert same, tag
+        del layer, sphere, parts, d_sh, ref, got
+
+        # ---- (4) the sharded merge and mesh of the fleet's submaps -------
+        dspec = dataclasses.replace(spec, max_blocks=2 * spec.max_blocks)
+        layers = [vx.TsdfLayer(**{f.name: getattr(
+            st.collection.layers, f.name)[k] for f in dataclasses.fields(
+                vx.TsdfLayer)}) for st in fleet.states for k in range(3)]
+        mposes = [st.collection.T_odom_submap[k] for st in fleet.states
+                  for k in range(3)]
+        fused, sh_ms = _fenced_ms(lambda: msh.merge_layers_sharded(
+            dspec, mesh, layers, mposes, src_spec=spec,
+            max_touched=dspec.max_blocks))
+
+        def sequential():
+            dst = vx.create_tsdf_layer(dspec, device)
+            for la, T in zip(layers, mposes):
+                merge_ops.merge_layer_into(dspec, dst, la, T,
+                                           dspec.max_blocks, src_spec=spec)
+            return dst
+        seq, seq_ms = _fenced_ms(sequential)
+        gates = _merge_gates(fused, seq)
+        (v, c), msh_ms = _fenced_ms(lambda: msh.extract_mesh_sharded(
+            dspec, mesh, fused, min_weight=0.1,
+            max_tris_per_device=2_000_000))
+        (vs, cs), ms_ms = _fenced_ms(lambda: mesh_ops.extract_mesh(
+            dspec, fused, min_weight=0.1, quantize=False))
+        print(f"[14] sharded merge of the fleet's {len(layers)} submaps into "
+              f"{dspec.max_blocks} blocks ({int(fused.num_blocks)} "
+              f"allocated): {sh_ms:.1f} ms vs the merge_layer_into loop "
+              f"{seq_ms:.1f} ms; max |Δ| weight {gates[0]:.2e}, sdf "
+              f"{gates[1]:.2e}, colour {gates[2]:.2e}; sharded mesh "
+              f"{v.shape[0]} triangles in {msh_ms:.1f} ms vs "
+              f"extract_mesh(quantize=False) {ms_ms:.1f} ms — {ident}")
+        assert v.shape[0] > 1000
+        assert np.array_equal(v, vs) and np.array_equal(c, cs)
+        del layers, fused, seq, v, c, vs, cs
+        fleet_states = fleet.states
+        del fleet
+        torch.cuda.empty_cache()
+
+        # ---- (6) phase 12's server: its final mesh, sharded ---------------
+        server.control_trigger(False)          # no solve: the same poses
+        ms_spec = server._auto_merge_spec(server.cfg.spec,
+                                          [s.layer for s in server.submaps])
+        (m_sh, v_sh, c_sh), t_sh = _fenced_ms(
+            lambda: server.get_final_global_mesh(device_mesh=mesh))
+        (m_un, v_un, c_un), t_un = _fenced_ms(server.get_final_global_mesh)
+        gates = _merge_gates(m_sh, m_un)
+        n = int(m_un.num_blocks)
+        bc = m_un.block_coords[:n]
+        lsb = float(((bc.amax(0) + 1 - bc.amin(0)).float()
+                     * ms_spec.block_size).max()) / 65535.0
+        matched = _matched_triangles(v_sh, v_un, lsb + 1e-5)
+        print(f"[14] phase 12's server, get_final_global_mesh(device_mesh)"
+              f" {t_sh:.1f} ms vs unsharded {t_un:.1f} ms: merged layers "
+              f"max |Δ| weight {gates[0]:.2e}, sdf {gates[1]:.2e}, colour "
+              f"{gates[2]:.2e}; triangles {v_sh.shape[0]} vs "
+              f"{v_un.shape[0]}, {matched} matched within one uint16 "
+              f"quantum ({lsb:.2e} m) + 1e-5 — {ident}")
+        assert v_sh.shape[0] > 1000
+        assert abs(v_sh.shape[0] - v_un.shape[0]) <= 1e-3 * v_un.shape[0]
+        assert matched >= (1 - 1e-3) * v_un.shape[0], matched
+        del m_sh, m_un, v_sh, v_un, fleet_states
+        torch.cuda.empty_cache()
+
+        # ---- (5) the dry run: world size 1 here, then two gloo ranks -----
+        # with torch's deterministic algorithms on both sides: the card's
+        # atomic adds (index_add_) otherwise round H by arrival order, and
+        # near the LM's minimum a step then falls either side of its cost
+        # rounding (1.7e-4 m apart across runs on an H100)
+        n = DRYRUN_ROBOTS
+        one, d1_ms = _fenced_ms(lambda: deterministic_dryrun(
+            n, device, fl.make_robot_mesh(n, device)))
+    t0 = time.perf_counter()
+    two = multihost.spawn(deterministic_dryrun, 2, (n, device), device,
+                          backend="gloo")
+    d2_s = time.perf_counter() - t0
+    for rank, res in enumerate(two):
+        dp = float(np.abs(res["poses"] - one["poses"]).max())
+        assert dp <= 1e-5, (rank, dp)
+        assert np.array_equal(res["dist"], one["dist"]), rank
+        a = vx.TsdfLayer(**{k: torch.from_numpy(v)
+                            for k, v in res["merged"].items()})
+        b = vx.TsdfLayer(**{k: torch.from_numpy(v)
+                            for k, v in one["merged"].items()})
+        _merge_gates(a, b)
+    print(f"[14] dryrun_multichip({n}), deterministic algorithms: world "
+          f"size 1 {d1_ms:.0f} ms; two gloo ranks on the card ({n // 2} "
+          f"robots each, spawned) {d2_s:.1f} s with start-up: poses within "
+          f"1e-5, ESDF equal, merge within the gates — {ident}; phase 14 "
+          f"took {time.perf_counter() - t_phase:.1f} s")
+    del depths, colors
+    torch.cuda.empty_cache()
+    return fleet_launches, k1_err
+
+
 def main() -> None:
     from coxgraph_tpu_torch import _build, runtime
     from coxgraph_tpu_torch.eval import benchmarks as bm
@@ -1670,10 +2058,15 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # ---- 12. the two-robot server tier ----------------------------------
-    phase_two_robot(device, ident)
+    server = phase_two_robot(device, ident)
 
     # ---- 13. the distributed deployment ---------------------------------
     max_err = max(max_err, phase_distributed(device, ident))
+
+    # ---- 14. the parallel tier --------------------------------------------
+    fleet_launches, k1_err = phase_parallel(device, ident, server)
+    max_err = max(max_err, k1_err)
+    del server
 
     print(json.dumps({"kernels": [{
         "name": "tsdf_update_blocks",
@@ -1689,6 +2082,7 @@ def main() -> None:
         "library_ms": None,
         "device_ms": k1_cold_ms,
         "warm_device_ms": k1_warm_ms,
+        "fleet_launches": fleet_launches,
     }, {
         "name": "hamming_topk",
         "route": "cuda",

@@ -4,8 +4,8 @@ The JAX package ``coxgraph_tpu`` stays the reference; this package mirrors
 its module paths and function names so each counterpart is easy to find,
 and runs on an NVIDIA Hopper GPU. It imports ``torch`` and never ``jax``.
 
-Ported so far (integration, loop detection, serving, the solve and the
-collaborative server tier):
+Ported so far (integration, loop detection, serving, the solve, the
+collaborative server tier and the parallel tier):
 
 core      : SE(3) geometry (``core.geometry``), block-sparse voxel pools,
             allocation and sampling (``core.voxel``)
@@ -32,6 +32,12 @@ server    : the fusion server and its client interface
 eval      : the benchmarks (``eval.benchmarks``), the two-robot demo
             (``eval.demos``), ATE/RPE (``eval.metrics``) and PLY/TUM
             export (``eval.export``)
+parallel  : the multi-robot tier on torch.distributed — SPMD fleet
+            integration and the distributed pose-graph solve
+            (``parallel.fleet``), the slab-sharded ESDF
+            (``parallel.esdf_sharded``), the sharded merge and mesh
+            (``parallel.merge_sharded``), multi-process bring-up
+            (``parallel.multihost``); the dry run (``eval.dryrun``)
 utils     : state interop with the JAX package (``utils.interop``)
 
 Every function takes its tensors on an explicit device; there is no global

@@ -168,14 +168,18 @@ def _row(x: Tensor, k: Tensor) -> Tensor:
 
 
 def start_submap(cfg: MapperConfig, state: MapperState, T_odom_cam: Tensor,
-                 t: Tensor) -> MapperState:
+                 t: Tensor, go: Optional[Tensor] = None) -> MapperState:
     """Open a new submap anchored at the current odometry pose and chain an
     odometry constraint from the previous submap, IN PLACE. When the pool
     is saturated (num_submaps == max_submaps) the slot writes AND the
-    constraint adds are dropped."""
+    constraint adds are dropped. ``go`` (a 0-d bool device tensor) makes
+    the rollover conditional on the device: where it is False nothing
+    changes (the fleet's per-robot ``lax.cond``, no host read)."""
     col = state.collection
     S = cfg.max_submaps
     k = col.num_submaps.clone()                  # the new slot
+    if go is not None:                           # slot S: every write drops
+        k = torch.where(go, k, S)
     prev = torch.clamp(k - 1, min=0)
     T_prev_new = geo.relative(_row(col.T_odom_submap, prev), T_odom_cam)
 
@@ -183,7 +187,9 @@ def start_submap(cfg: MapperConfig, state: MapperState, T_odom_cam: Tensor,
     put_row(col.start_time, k, t)
     put_row(col.end_time, k, t)
     put_row(col.hist_count, k, 0)
-    col.num_submaps.copy_(torch.clamp(k + 1, max=S))
+    n_new = torch.clamp(k + 1, max=S)
+    col.num_submaps.copy_(n_new if go is None else
+                          torch.where(go, n_new, col.num_submaps))
 
     in_pool = k < S
     eye = torch.eye(6, dtype=torch.float32, device=k.device)

@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import functools
 import warnings
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -337,12 +337,21 @@ def extract_mesh_chunks_device(spec: vx.VoxelGridSpec,
     cnts[i]), written at a running offset clamped to max_tris; totals[i]
     counts chunk i's valid triangles before its capacity clamp, so
     totals[i] > cnts[i] means it overflowed (or the buffer filled)."""
-    device = layer.sdf.device
-    verts_g, cols_g, cols_idx = _buffers(spec, chunk, max_tris, cap_mult,
-                                         device)
-    ar = torch.arange(chunk, dtype=torch.int32, device=device)
+    ar = torch.arange(chunk, dtype=torch.int32, device=layer.sdf.device)
     ids = chunk_ids[:, None]
-    slots = torch.where(ids < 0, layer.max_blocks, ids * chunk + ar)
+    return _extract_slot_chunks(
+        spec, layer, torch.where(ids < 0, layer.max_blocks, ids * chunk + ar),
+        min_weight, max_tris, cap_mult)
+
+
+def _extract_slot_chunks(spec: vx.VoxelGridSpec, layer: vx.TsdfLayer,
+                         slots: Tensor, min_weight: float, max_tris: int,
+                         cap_mult: int):
+    """extract_mesh_chunks_device over explicit slot chunks (nc, chunk);
+    slots ≥ max_blocks emit nothing."""
+    device = layer.sdf.device
+    verts_g, cols_g, cols_idx = _buffers(spec, slots.shape[1], max_tris,
+                                         cap_mult, device)
     off = torch.zeros((), dtype=torch.int32, device=device)
     offs, cnts, totals = [], [], []
     for i in range(slots.shape[0]):
@@ -359,17 +368,25 @@ def extract_mesh_chunks_device(spec: vx.VoxelGridSpec,
 
 def extract_mesh_device(spec: vx.VoxelGridSpec, layer: vx.TsdfLayer,
                         min_weight: float = 1e-4, chunk: int = 16,
-                        max_tris: int = 2_000_000, cap_mult: int = 1):
-    """Mesh extraction over every pool slot, with no host read.
+                        max_tris: int = 2_000_000, slot_base: int = 0,
+                        n_slots: Optional[int] = None, cap_mult: int = 1):
+    """Mesh extraction over pool slots [slot_base, slot_base + n_slots)
+    (default: every slot), with no host read. The sharded extractor
+    (parallel.merge_sharded) gives each rank one range.
 
     → (verts (9, max_tris + cap), colors (9, max_tris + cap), count (),
     total ()): chunk runs front-compacted; ``total`` counts every valid
     triangle before the per-chunk capacity clamp, so total > count means
-    some chunk overflowed (or the buffer filled)."""
-    n_chunks = -(-layer.max_blocks // chunk)
-    verts, cols, offs, cnts, totals = extract_mesh_chunks_device(
-        spec, layer, chunk, min_weight, max_tris,
-        torch.arange(n_chunks, dtype=torch.int32, device=layer.sdf.device),
+    some chunk overflowed (or the buffer filled). The range's last chunk
+    stops at its end: a range that is not a multiple of ``chunk`` never
+    meshes the next range's slots (the JAX package's does)."""
+    n = layer.max_blocks if n_slots is None else n_slots
+    n_chunks = -(-n // chunk)
+    slots = slot_base + torch.arange(n_chunks * chunk, dtype=torch.int32,
+                                     device=layer.sdf.device)
+    slots = torch.where(slots < slot_base + n, slots, layer.max_blocks)
+    verts, cols, offs, cnts, totals = _extract_slot_chunks(
+        spec, layer, slots.reshape(n_chunks, chunk), min_weight, max_tris,
         cap_mult)
     return (verts, cols, torch.clamp(offs[-1] + cnts[-1], max=max_tris),
             totals.sum(dtype=torch.int32))

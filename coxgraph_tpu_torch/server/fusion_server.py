@@ -27,8 +27,8 @@ Client-pushed submap meshes (``comm.mesh_comm.MeshWithHistory``) are
 cached by ``add_submap_mesh`` and combined in the global frame by
 ``combined_submap_mesh``.
 
-Not ported yet: the ``device_mesh`` branch of ``get_final_global_mesh``
-(``parallel.merge_sharded``); it raises ``NotImplementedError``.
+With ``device_mesh`` the final global mesh's merge and meshing run over
+the ranks of a process group (``parallel.merge_sharded``).
 """
 
 from __future__ import annotations
@@ -986,13 +986,12 @@ class CoxgraphServer:
         of the graph and restores the online state afterwards
         (server_visualizer.cpp:28-31); fusions are locked out meanwhile
         (final_mesh_gen_mutex_, coxgraph_server.cpp:111-116).
-        ``isolate=False`` keeps the re-optimized poses. ``device_mesh``
-        (the sharded merge) is not ported yet."""
-        if device_mesh is not None:
-            raise NotImplementedError(
-                "get_final_global_mesh(device_mesh=...) needs "
-                "parallel.merge_sharded, not ported yet "
-                "(ROADMAP queue 1, item 5)")
+        ``isolate=False`` keeps the re-optimized poses. With
+        ``device_mesh`` (a ``parallel.collectives.RobotMesh``; every rank
+        calls this on the same server state) the per-submap merge loop and
+        the meshing run distributed: submaps and pool slots split over the
+        ranks, one all_reduce per field fuses the pools
+        (parallel.merge_sharded)."""
         with self._fusion_lock:
             self.wait_for_optimize()
             self.process_mf_future()
@@ -1003,8 +1002,8 @@ class CoxgraphServer:
                 self.global_mesh_need_update = 0
                 if self.in_control and len(self.submaps) >= 2:
                     self.optimize(push_updates=not isolate)
-                merged, verts, cols = self._merge_and_mesh(mesh_spec,
-                                                           min_weight)
+                merged, verts, cols = self._merge_and_mesh(
+                    mesh_spec, min_weight, device_mesh)
             finally:
                 if snap is not None:
                     self._restore_graph(snap)
@@ -1013,9 +1012,10 @@ class CoxgraphServer:
         return merged, verts, cols
 
     def _merge_and_mesh(self, mesh_spec: Optional[vx.VoxelGridSpec],
-                        min_weight: float):
+                        min_weight: float, device_mesh=None):
         """Every submap merged at its current global pose into one layer,
-        then meshed → (merged, verts, cols)."""
+        then meshed, over ``device_mesh``'s ranks when given → (merged,
+        verts, cols)."""
         spec = mesh_spec or self.cfg.spec
         if mesh_spec is None:
             spec = self._auto_merge_spec(spec,
@@ -1024,12 +1024,24 @@ class CoxgraphServer:
         # submaps stay at client resolution; the global mesh layer may be
         # finer or coarser (coxgraph_server.launch:5-6)
         src_spec = self.cfg.spec if spec != self.cfg.spec else None
-        merged = vx.create_tsdf_layer(spec, self.device)
-        for s in self.submaps:
-            merge_ops.merge_layer_into_sized(spec, merged, s.layer,
-                                             poses[s.sid], src_spec=src_spec)
-        verts, cols = mesh_ops.extract_mesh(spec, merged,
-                                            min_weight=min_weight)
+        if device_mesh is not None and self.submaps:
+            from ..parallel import merge_sharded as msh
+            # every touched block of a submap in one pass, as the sized
+            # sequential merge has it
+            merged = msh.merge_layers_sharded(
+                spec, device_mesh, [s.layer for s in self.submaps],
+                [poses[s.sid] for s in self.submaps], src_spec=src_spec,
+                max_touched=spec.max_blocks)
+            verts, cols = msh.extract_mesh_sharded(
+                spec, device_mesh, merged, min_weight=min_weight)
+        else:
+            merged = vx.create_tsdf_layer(spec, self.device)
+            for s in self.submaps:
+                merge_ops.merge_layer_into_sized(spec, merged, s.layer,
+                                                 poses[s.sid],
+                                                 src_spec=src_spec)
+            verts, cols = mesh_ops.extract_mesh(spec, merged,
+                                                min_weight=min_weight)
         if int(merged.num_blocks) >= spec.max_blocks:
             warnings.warn(
                 "global-merge block pool saturated "

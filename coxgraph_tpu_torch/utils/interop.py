@@ -20,6 +20,12 @@ configs) through ``config_from``, a served ``SubmapHandle``
 (``submap_handle_from``) and an ``InProcessClient`` with its mapper state
 (``client_from``).
 
+The parallel tier crosses too: a JAX fleet (every MapperState field with
+a leading (R, …) robot axis) to the port's ``Fleet`` of per-robot states
+and back (``fleet_from_numpy`` / ``fleet_to_numpy``), a ``ShardedBlocks``
+slab partition (``sharded_blocks_from`` / ``sharded_blocks_to_numpy``),
+and a stacked layer tree to a list of layers (``layers_from_stacked``).
+
 Keypoints and a loop detector's database cross with their descriptors as
 the uint32 words of the JAX package; in the port they are int32 tensors
 holding the same bit patterns.
@@ -43,6 +49,8 @@ from ..ops import features as ft
 from ..ops import points as points_ops
 from ..ops import registration as reg
 from ..ops import tsdf as tsdf_ops
+from ..parallel import esdf_sharded as es
+from ..parallel import fleet as fl
 from ..server import client_interface as ci
 from ..server import fusion_server as fs
 from ..solver import pose_graph as pg
@@ -139,6 +147,48 @@ def mapper_state_from(state, device) -> sm.MapperState:
     ``device``."""
     return mapper_state_from_numpy(
         {k: host(v) for k, v in flatten(state).items()}, device)
+
+
+def fleet_from_numpy(arrays: Dict[str, np.ndarray], device,
+                     mesh=None) -> fl.Fleet:
+    """A stacked fleet as a flat dotted-path dict (every leaf with a
+    leading (R, …) robot axis, the JAX fleet's layout) → the port's Fleet
+    on ``device``: every robot, or with ``mesh`` (a parallel RobotMesh)
+    this rank's robots on ``mesh.device``."""
+    R = next(iter(arrays.values())).shape[0]
+    rows = range(R) if mesh is None else mesh.share(R)
+    dev = device if mesh is None else mesh.device
+    return fl.Fleet(states=[mapper_state_from_numpy(
+        {k: v[r] for k, v in arrays.items()}, dev) for r in rows],
+        first=rows.start, n_robots=R)
+
+
+def fleet_to_numpy(fleet: fl.Fleet) -> Dict[str, np.ndarray]:
+    """The fleet's robots (this rank's) → a flat dict stacked along a
+    leading robot axis (the JAX fleet's layout)."""
+    per = [mapper_state_to_numpy(st) for st in fleet.states]
+    return {k: np.stack([p[k] for p in per]) for k in per[0]}
+
+
+def sharded_blocks_from(parts, device) -> es.ShardedBlocks:
+    """A slab partition (the JAX package's ShardedBlocks, the port's, or a
+    dict of their fields) → the port's on ``device``."""
+    arrays = parts if isinstance(parts, dict) else _to_numpy(parts)
+    return _build(es.ShardedBlocks, arrays, device)
+
+
+def sharded_blocks_to_numpy(parts) -> Dict[str, np.ndarray]:
+    return _to_numpy(parts)
+
+
+def layers_from_stacked(stacked, device) -> List[vx.TsdfLayer]:
+    """A stacked layer tree (every TsdfLayer field with a leading (S, …)
+    axis, e.g. a JAX collection's ``layers``) → a list of the port's
+    layers on ``device``."""
+    arrays = {f.name: host(getattr(stacked, f.name))
+              for f in dataclasses.fields(vx.TsdfLayer)}
+    return [layer_from_numpy({k: v[s] for k, v in arrays.items()}, device)
+            for s in range(arrays["sdf"].shape[0])]
 
 
 def submap_handle_from(h, device) -> ci.SubmapHandle:

@@ -771,6 +771,101 @@ def test_final_mesh_on_gpu_matches_cpu(gpu):
     assert np.abs(cg - cc).max() <= 1.0 / 255 + 1e-6
 
 
+@pytest.mark.cuda
+def test_sharded_final_mesh_on_gpu_matches_cpu(gpu):
+    """get_final_global_mesh(device_mesh=…) on the card (a world-size-1
+    NCCL group) and on the CPU (a gloo group beside it), on the world and
+    poses of the test above: merged integers and triangle count exact,
+    pools within 1e-4, vertices within one uint16 quantum of the live
+    blocks' extent (the unquantized meshes' tolerance of the test above),
+    colours within 1e-4."""
+    import torch.distributed as dist
+
+    from coxgraph_tpu_torch.eval import demos
+    from coxgraph_tpu_torch.parallel import fleet as fl
+    from coxgraph_tpu_torch.parallel import multihost
+
+    trajs, servers = _small_servers(gpu)
+    frame = np.concatenate([
+        geo.so3_exp(torch.tensor([0.031, -0.017, 0.113])).numpy(),
+        [0.0123, -0.0371, 0.0217]]).astype(np.float32)
+    out = {}
+    with multihost.single_process(gpu):
+        meshes = {"cuda": fl.make_robot_mesh(device=gpu),
+                  "cpu": fl.make_robot_mesh(device="cpu", group=dist.new_group(
+                      backend="gloo"))}
+        for dev, s in servers.items():
+            s.control_trigger(False)
+            assert s.map_fusion(demos.true_fusion(trajs, 3, 3))
+            s.collect_all_submaps()
+            for sm_ in s.submaps:
+                sm_.T_G_submap = geo.compose_np(frame, sm_.T_G_submap
+                                                ).astype(np.float32)
+            out[dev] = s.get_final_global_mesh(device_mesh=meshes[dev])
+    (mc, vc, cc), (mg, vg, cg) = out["cpu"], out["cuda"]
+    for name in ("block_index", "block_coords", "num_blocks"):
+        assert torch.equal(getattr(mg, name).cpu(), getattr(mc, name))
+    for name in ("sdf", "weight", "color"):
+        d = (getattr(mg, name).cpu() - getattr(mc, name)).abs()
+        assert float(d.max()) <= 1e-4, name
+    n = int(mc.num_blocks)
+    bc = mc.block_coords[:n].numpy()
+    spec = servers["cpu"].cfg.spec
+    lsb = float(((bc.max(0) + 1 - bc.min(0)) * spec.block_size).max()
+                ) / 65535.0
+    assert vg.shape == vc.shape and vc.shape[0] > 500
+    assert np.abs(vg - vc).max() <= lsb
+    assert np.abs(cg - cc).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_fleet_step_on_gpu_matches_cpu(gpu):
+    """Two robots, three fleet steps (rollovers at t = 0 and 0.2) at 80×60
+    into 8³ blocks, on the card without a host sync and on the CPU, the
+    same frames: integers exact, poses within 1e-6, pools with the share
+    of |Δ| > 1e-4 below 1e-3 (this file's card-vs-CPU tolerance)."""
+    from coxgraph_tpu_torch.parallel import fleet as fl
+    from coxgraph_tpu_torch.parallel import multihost
+    from coxgraph_tpu_torch.utils import interop
+
+    R = 2
+    cfg = sm.MapperConfig(spec=_spec(8), integrator=CFG, intrinsics=INTR,
+                          max_submaps=4, max_history=16,
+                          submap_interval=0.2, max_constraints=16)
+    scene = syn.default_scene("cpu")
+    trajs = torch.stack([syn.orbit_trajectory(
+        3, scene.room_center, radius=2.5, sweep=0.3 * np.pi,
+        start_angle=np.pi * r) for r in range(R)], 1)         # (3,R,7)
+    frames = [[syn.render_depth(scene, INTR, trajs[f, r]) for r in range(R)]
+              for f in range(3)]
+    states = {}
+    with multihost.single_process(gpu):
+        for dev in ("cpu", gpu):
+            mesh = fl.make_robot_mesh(R, dev)
+            fleet = fl.shard_fleet(fl.create_fleet(cfg, R, dev), mesh)
+            for f in range(3):
+                args = (torch.stack([d for d, _ in frames[f]]).to(dev),
+                        torch.stack([c for _, c in frames[f]]).to(dev),
+                        trajs[f].to(dev), torch.full((R,), 0.1 * f).to(dev))
+                if dev == gpu:
+                    torch.cuda.synchronize()
+                    assert _no_sync(lambda: fl.fleet_step(cfg, mesh, fleet,
+                                                          *args))
+                else:
+                    fl.fleet_step(cfg, mesh, fleet, *args)
+            states[str(dev)] = interop.fleet_to_numpy(fleet)
+    c, g = states["cpu"], states[str(gpu)]
+    assert int(c["collection.num_submaps"].min()) == 2
+    for k, a in c.items():
+        b = g[k]
+        if k.startswith("collection.layers.") and a.dtype == np.float32:
+            assert (np.abs(b - a) > 1e-4).mean() < 1e-3, k
+        elif a.dtype == np.float32:
+            np.testing.assert_allclose(b, a, atol=1e-6, rtol=0, err_msg=k)
+        else:
+            np.testing.assert_array_equal(b, a, err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # Transports and point clouds (wire, mesh with history, ops.points)
 # ---------------------------------------------------------------------------

@@ -10,6 +10,7 @@ the quantized path equal up to one quantum (observed: equal)."""
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -185,3 +186,77 @@ def test_extract_mesh_chunks_device_matches_jax():
             np.testing.assert_array_equal(b.numpy(), np.asarray(a))
         _close(outp[0], outj[0])
         _close(outp[1], outj[1])
+
+
+def _ranges(extract, n_slots):
+    """extract(slot_base, n_slots) over consecutive ranges covering the
+    pool → the ranges' triangles, concatenated in order, as (T,3,3)."""
+    parts = []
+    for base in range(0, SPEC.max_blocks, n_slots):
+        v, _, k, total = extract(base, min(n_slots, SPEC.max_blocks - base))
+        assert int(k) == int(total)
+        parts.append(np.asarray(v)[:, :int(k)].T.reshape(-1, 3, 3))
+    return np.concatenate(parts)
+
+
+def _centroids(v):
+    return sorted(map(tuple, np.round(v.mean(1) * 1e4).astype(np.int64)))
+
+
+@pytest.mark.parametrize("n_slots", [32, 24])
+def test_extract_mesh_device_slot_ranges_make_the_layer(n_slots):
+    """The slot ranges' meshes, concatenated, are the whole layer's mesh:
+    the same array when each range is a multiple of the 16-slot chunk, the
+    same triangles otherwise (chunks then group slots differently)."""
+    _, pl = sphere()
+    vw, _, nw, _ = pmesh.extract_mesh_device(SPEC, pl, 1e-4, 16, 200_000)
+    whole = vw[:, :int(nw)].numpy().T.reshape(-1, 3, 3)
+    got = _ranges(lambda b, n: pmesh.extract_mesh_device(
+        SPEC, pl, 1e-4, 16, 200_000, slot_base=b, n_slots=n), n_slots)
+    assert got.shape == whole.shape and whole.shape[0] > 1000
+    if n_slots % 16 == 0:
+        np.testing.assert_array_equal(got, whole)
+    else:
+        assert _centroids(got) == _centroids(whole)
+
+
+def test_jax_slot_ranges_overlap_past_a_partial_chunk():
+    """Reference fault (ROADMAP queue 3): the JAX package's
+    extract_mesh_device meshes whole chunks from slot_base, so a range
+    that is not a multiple of the chunk also meshes the next range's first
+    slots, and extract_mesh_sharded then returns those triangles twice
+    (on a mesh whose device count leaves ⌈max_blocks / D⌉ off the chunk).
+    The port stops each range at its end (the test above)."""
+    jl, _ = sphere()
+    n = int(jmesh.extract_mesh_device(JSPEC, jl, 1e-4, 16, 200_000)[2])
+    got = _ranges(lambda b, k: jmesh.extract_mesh_device(
+        JSPEC, jl, 1e-4, 16, 200_000, slot_base=b, n_slots=24), 24)
+    assert got.shape[0] > n
+
+
+def test_sharded_extraction_heals_its_capacity():
+    """extract_mesh_sharded from a 1,024-triangle buffer on the dense
+    layer (its chunks overflow the stock capacity too) returns the whole
+    mesh, as extract_mesh does. Reference fault (ROADMAP queue 3): the JAX
+    package's keeps its first buffer and drops the rest with a warning —
+    at its 250,000-triangle default, most of a bench-scale final mesh."""
+    from jax.sharding import Mesh
+
+    from coxgraph_tpu.parallel import merge_sharded as jms
+    from coxgraph_tpu_torch.parallel import fleet as fl
+    from coxgraph_tpu_torch.parallel import merge_sharded as msh
+    from coxgraph_tpu_torch.parallel import multihost
+
+    jl, pl = dense()
+    want, want_c = pmesh.extract_mesh(SPEC, pl, chunk=16, quantize=False)
+    with multihost.single_process(CPU):
+        v, c = msh.extract_mesh_sharded(SPEC, fl.make_robot_mesh(device=CPU),
+                                        pl, max_tris_per_device=1024)
+    assert v.shape[0] == want.shape[0] > 1024
+    np.testing.assert_array_equal(v, want)
+    np.testing.assert_array_equal(c, want_c)
+    with pytest.warns(RuntimeWarning, match="dropped"):
+        vj, _ = jms.extract_mesh_sharded(
+            JSPEC, Mesh(np.array(jax.devices()[:1]), ("d",)), jl,
+            max_tris_per_device=1024)
+    assert vj.shape[0] < want.shape[0]

@@ -47,8 +47,10 @@ from coxgraph_tpu_torch.ops import mesh as mesh_ops
 from coxgraph_tpu_torch.server import fusion_server as fs
 from coxgraph_tpu_torch.server.client_interface import InProcessClient
 from coxgraph_tpu_torch.utils import interop
+from coxgraph_tpu_torch.parallel import multihost
 from test_torch_mesh import one_thread  # noqa: F401
 from test_torch_solver import pose_errors
+from torch_parallel_workers import server_final_mesh
 
 CPU = torch.device("cpu")
 CFG = interop.config_from(ts.CFG)
@@ -206,6 +208,57 @@ def test_final_mesh_at_given_poses_matches_jax(sequence):
     assert pv.shape == jv.shape and pv.shape[0] > 500
     assert np.abs(pv - jv).max() <= lsb + 1e-6
     assert np.abs(pc - jc).max() <= 1.0 / 255 + 1e-6
+
+
+def match_triangles(a: np.ndarray, b: np.ndarray, atol: float):
+    """The order of ``b`` that puts each triangle of ``a`` (T,3,3) beside
+    its own triangle of ``b``, every coordinate within ``atol``; None when
+    the soups are not the same triangles."""
+    from scipy.spatial import cKDTree
+
+    if a.shape != b.shape:
+        return None
+    d, idx = cKDTree(b.reshape(len(b), -1)).query(a.reshape(len(a), -1),
+                                                   p=np.inf)
+    if (d > atol).any() or len(np.unique(idx)) != len(a):
+        return None
+    return idx
+
+
+@pytest.fixture(scope="module")
+def sharded_final_meshes(world):
+    """get_final_global_mesh with and without ``device_mesh``, on a server
+    over fresh port clients of the world with control off and every
+    submap moved by one generic change of the global frame (off the voxel
+    lattice, as test_final_mesh_at_given_poses_matches_jax): at world size
+    1 in this process and at world size 2 in two spawned gloo ranks."""
+    frame = np.concatenate([
+        geo.so3_exp(torch.tensor([0.031, -0.017, 0.113])).numpy(),
+        [0.0123, -0.0371, 0.0217]]).astype(np.float32)
+    scfg = fs.ServerConfig(
+        spec=SPEC, max_submaps=32, refuse_interval=0.0,
+        registration=fs.reg.RegistrationConfig(max_points=512, iterations=8))
+    args = (CFG, scfg, list(world[3]), frame)
+    with multihost.single_process(CPU):
+        one = server_final_mesh(*args)
+    return [one] + multihost.spawn(server_final_mesh, 2, args, device=CPU)
+
+
+@pytest.mark.parametrize("rank", [None, 0, 1])
+def test_sharded_final_mesh_matches_unsharded(sharded_final_meshes, rank):
+    """The sharded final mesh (rank None: world size 1) holds the
+    unsharded one's triangles: vertices within one quantum of the
+    unsharded mesh's uint16 grid plus 1e-5 m (the unsharded path returns
+    extract_mesh's quantized vertices, the sharded one f32 values; and the
+    sharded merge fuses Σw·sdf / Σw where the sequential merge keeps
+    running means, which differ in the last bits), colours within one
+    uint8 step plus 1e-5."""
+    res = sharded_final_meshes[0 if rank is None else rank + 1]
+    (v, c), (vs, cs) = res["sharded"], res["unsharded"]
+    assert v.shape[0] > 500
+    order = match_triangles(v, vs, res["lsb"] + 1e-5)
+    assert order is not None
+    assert np.abs(c - cs[order]).max() <= 1.0 / 255 + 1e-5
 
 
 def test_merge_at_the_solved_level_poses_follows_rounding(sequence):
@@ -710,16 +763,23 @@ def test_combined_submap_mesh_matches_jax(sequence):
 @pytest.mark.parametrize("call", ["add_submap_mesh", "publish_submap_meshes",
                                   "combined_submap_mesh", "device_mesh"])
 def test_unported_pieces_raise(world, call):
-    """Only the sharded final mesh (parallel/, ROADMAP queue 1 item 5)
-    still raises; the client-pushed mesh calls are ported: a mesh
-    message is cached, published back and combined in the global frame
-    (a mesh whose submap the server does not hold yet is skipped)."""
+    """Every piece these cases once found raising is ported now. The
+    client-pushed mesh calls: a mesh message is cached, published back
+    and combined in the global frame (a mesh whose submap the server does
+    not hold yet is skipped). The sharded final mesh (parallel/, ROADMAP
+    queue 1 item 5): over a world-size-1 group it returns as many
+    triangles as the unsharded call (test_sharded_final_mesh_matches_
+    unsharded holds the triangles themselves)."""
     from coxgraph_tpu_torch.comm import mesh_comm
+    from coxgraph_tpu_torch.parallel import fleet as fl
 
     server = port_server(port_clients(world))
     if call == "device_mesh":
-        with pytest.raises(NotImplementedError, match="item 5"):
-            server.get_final_global_mesh(device_mesh=object())
+        with multihost.single_process(CPU):
+            _, v, _ = server.get_final_global_mesh(
+                device_mesh=fl.make_robot_mesh(device=CPU))
+        _, vs, _ = server.get_final_global_mesh()
+        assert v.shape == vs.shape and v.shape[0] > 500
         return
     h = server.clients[0].get_submap_by_time(0.0)
     msg = mesh_comm.encode_submap_mesh(SPEC, h.layer, h.hist_stamps,

@@ -16,7 +16,8 @@ VIOInterface, the loop detector and the fusion server), its
 distributed deployment (robot processes on the card serving submaps over
 the native bus, the mesh-with-history transport, point clouds) and its
 parallel tier (an 8-robot fleet, the distributed solve, the sharded ESDF,
-merge and mesh over torch.distributed) and fails
+merge and mesh over torch.distributed) and its drivers (the single-robot
+demo, and the endurance mission's four threads on one card) and fails
 (nonzero exit, no result line) if anything is wrong:
 
   1. device    — require a CUDA GPU; print nvidia-smi's name and power limit
@@ -159,6 +160,17 @@ merge and mesh over torch.distributed) and fails
                  uint16 quantum); dryrun_multichip(8) at world size 1 and
                  over two gloo ranks spawned on the card (poses within
                  1e-5, ESDF equal, merge within the gates)
+ 15. drivers   — eval.demos.single_robot_demo at its defaults (60 frames at
+                 160×120, 4,096 blocks × 16 submaps): its gate (ATE after
+                 the closure and PGO < max(2.5 × before, 0.08 m), > 1,000
+                 triangles), K1 once per frame; K1 ≡ its twin (phase 3's
+                 gate) on two endurance frames at the mission's shapes
+                 (1,024 blocks, 512 lanes); an endurance mission of 2 laps
+                 (2 robots × 192 frames, burst; eval.endurance) with its
+                 stream, serving, detector and solve threads on the card:
+                 no error from any thread or solve, ≥ 1 fusion, max ATE <
+                 0.25 m, > 1,000 triangles, surface p90 < 4 voxels, every
+                 thread joined, K1 once per integrated frame, K2 launched
 
 The line before the last is the card's nvidia-smi name and power limit,
 the one before it the kernels' JSON record; the last line is
@@ -1951,6 +1963,69 @@ def phase_parallel(device, ident, server):
     return fleet_launches, k1_err
 
 
+def phase_drivers(device, ident):
+    """Phase 15: the single-robot demo at its defaults and a 2-lap
+    endurance mission (the drivers' gates), K1 ≡ its twin at the mission's
+    shapes → (demo's K1 launches, the mission's K1 and K2 launches, K1's
+    max |Δ| against its twin)."""
+    from coxgraph_tpu_torch.eval import demos
+    from coxgraph_tpu_torch.eval import endurance as en
+    from coxgraph_tpu_torch.ops import cuda_hamming, cuda_tsdf
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cuda_tsdf.LAUNCHES = 0
+    demo = demos.single_robot_demo(device)
+    demo_k1 = cuda_tsdf.LAUNCHES
+    print(f"[15] single-robot demo: {demo['frames']} frames → "
+          f"{demo['submaps']} submaps in {demo['integrate_s']:.2f} s "
+          f"({demo['fps']:.2f} frames/s, a fence each render and step); ATE "
+          f"raw {demo['ate_raw'] * 100:.2f} cm, after loop + PGO "
+          f"{demo['ate_opt'] * 100:.2f} cm; merged {demo['merged_blocks']} "
+          f"blocks, {demo['triangles']} triangles, surface p90 "
+          f"{demo['surf_p90'] * 100:.2f} cm; K1 launches {demo_k1}; timers "
+          f"{json.dumps(demo['timers'])} — {ident}")
+    assert demo["ok"], {k: v for k, v in demo.items()
+                        if not isinstance(v, np.ndarray)}
+    assert demo_k1 == demo["frames"], demo_k1
+
+    mission = en.EnduranceMission(device, laps=2)
+    try:
+        frames = []
+        for f in (0, 1):
+            depth, color = mission.frame_at(0, f)
+            frames.append((0, depth, color.permute(2, 0, 1).contiguous(),
+                           torch.from_numpy(mission.gt[0][f]).to(device)))
+        k1_err, _ = k1_against_twin(mission.cfg, device, frames, "15")
+        cuda_tsdf.LAUNCHES = 0
+        cuda_hamming.LAUNCHES = 0
+        art = mission.run(log=lambda line: print("[15] " + line))
+        k1, k2 = cuda_tsdf.LAUNCHES, cuda_hamming.LAUNCHES
+    finally:
+        mission.close()
+    st = art["stage_wall_s"]
+    print(f"[15] endurance, {mission.laps} laps burst: {art['frames']} "
+          f"frames, pipeline {art['pipeline_fps']} frames/s (wall "
+          f"{art['pipeline_wall_s']} s), stream {art['stream_fps']} "
+          f"frames/s, real-time factor {art['realtime_factor']}; stage "
+          f"walls {json.dumps(st)}; {art['n_solves']} solves "
+          f"({art['coalesced_solves']} coalesced, "
+          f"{art['async_solve_wall_s']} s); {art['fusions_accepted']} of "
+          f"{art['fusion_candidates']} fusions; ATE {art['ate_m']} m; "
+          f"final mesh {art['final_mesh_tris']} triangles in "
+          f"{art['final_mesh_wall_s']} s, surface p90 "
+          f"{art['surface_err_p90_m']} m; K1 launches {k1} for "
+          f"{sum(art['integrated_frames'])} integrated frames, K2 launches "
+          f"{k2}; gates {art['gates']} — {ident}")
+    print("[15] " + json.dumps(art))
+    assert art["ok"], art["gates"]
+    assert k1 == sum(art["integrated_frames"]) == 2 * mission.n_frames, k1
+    assert k2 >= 1, k2
+    print(f"[15] phase 15 took {time.perf_counter() - t_phase:.1f} s")
+    return demo_k1, k1, k2, k1_err
+
+
 def main() -> None:
     from coxgraph_tpu_torch import _build, runtime
     from coxgraph_tpu_torch.eval import benchmarks as bm
@@ -2067,6 +2142,11 @@ def main() -> None:
     fleet_launches, k1_err = phase_parallel(device, ident, server)
     max_err = max(max_err, k1_err)
     del server
+    torch.cuda.empty_cache()
+
+    # ---- 15. the drivers ------------------------------------------------
+    demo_launches, end_k1, end_k2, k1_err = phase_drivers(device, ident)
+    max_err = max(max_err, k1_err)
 
     print(json.dumps({"kernels": [{
         "name": "tsdf_update_blocks",
@@ -2083,6 +2163,8 @@ def main() -> None:
         "device_ms": k1_cold_ms,
         "warm_device_ms": k1_warm_ms,
         "fleet_launches": fleet_launches,
+        "single_robot_launches": demo_launches,
+        "endurance_launches": end_k1,
     }, {
         "name": "hamming_topk",
         "route": "cuda",
@@ -2101,6 +2183,7 @@ def main() -> None:
         "matmul_ms": k2["matmul_ms"],
         "pool_ms": k2["pool_ms"],
         "pool_device_ms": k2["pool_device_ms"],
+        "endurance_launches": end_k2,
     }]}))
     print(ident)
     print(json.dumps({"ok": True, "device": {

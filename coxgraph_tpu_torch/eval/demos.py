@@ -1,4 +1,12 @@
-"""The two-robot collaborative reconstruction demo — port of the body of
+"""The demos of the JAX package's ``examples/``, as functions that return
+what the JAX scripts print.
+
+``single_robot_demo`` is ``examples/single_robot_demo.py``: one robot's
+synthetic clip through ``HostMapper.step`` with drifting odometry, a
+ground-truth loop closure, local PGO, the merged map's mesh, the PLY and
+TUM exports and the raw and optimized ATE.
+
+The two-robot collaborative reconstruction demo — port of the body of
 ``examples/two_robot_demo.py`` (the CVG two-client experiment,
 BASELINE.json config 4): two robots with separate drifting odometry
 frames map overlapping halves of a scene; the loop detector finds
@@ -20,6 +28,7 @@ to a fusion server in this process. ``pointcloud_demo`` is
 
 from __future__ import annotations
 
+import json
 import math
 import os
 import pickle
@@ -801,3 +810,118 @@ def pointcloud_demo(device=None, frames: int = 24, scale: float = 0.25,
     res["ok"] = bool(res["submaps"] >= 3 and res["triangles"] > 1000
                      and res["surf_p90"] < 2.0 * spec.voxel_size)
     return res
+
+
+# ---------------------------------------------------------------------------
+# The single-robot demo (examples/single_robot_demo.py)
+# ---------------------------------------------------------------------------
+
+SINGLE_DT = 0.05     # s between frames (20 Hz, the reference's assumption)
+
+
+def single_robot_config(frames: int, scale: float) -> sm.MapperConfig:
+    """examples/single_robot_demo.py's mapper: 5 cm voxels, 16³ blocks,
+    4,096 blocks × 16 submaps, 2,048 touched blocks, ~8 submaps a clip."""
+    spec = vx.VoxelGridSpec(voxel_size=0.05, voxels_per_side=16, grid_dim=64,
+                            max_blocks=4096, truncation=0.15)
+    return sm.MapperConfig(
+        spec=spec,
+        integrator=tsdf_ops.TsdfIntegratorConfig(max_touched_blocks=2048),
+        intrinsics=syn.PinholeIntrinsics().scaled(scale),
+        max_submaps=16, max_history=256,
+        submap_interval=frames * SINGLE_DT / 8)
+
+
+def single_robot_demo(device=None, frames: int = 60, scale: float = 0.25,
+                      out: Optional[str] = None, odom=None,
+                      cfg: Optional[sm.MapperConfig] = None) -> dict:
+    """The single-robot demo on ``device`` (None: the card): an orbit of
+    ``frames`` frames rendered on the device, odometry drifting from it
+    (torch's seed 0, 0.004 rad / 1 cm a step; ``odom`` (frames, 7) numpy
+    replaces it), one ``HostMapper.step`` a frame, the ground-truth loop
+    closure between the first and the last submap, ``optimize_local``
+    (20 iterations), ``merged_layer`` and its mesh (min weight 0.1)
+    against the analytic scene. The PLY and TUM files go to ``out``
+    (default a temporary directory). ``cfg`` replaces
+    ``single_robot_config`` (the tests' small pools).
+
+    → frames, submaps, integration wall and frames/s, ATE of the raw and
+    the optimized trajectory (m, no alignment), merged blocks, triangles,
+    surface error p90 (m), the timers, the trajectory's stamps and poses
+    before and after the solve (numpy), and ``ok``: the JAX demo's gate,
+    ATE after < max(2.5 × before, 0.08 m) and > 1,000 triangles."""
+    from ..ops import mesh as mesh_ops
+    from ..solver import pose_graph as pg
+
+    device = (runtime.require_cuda() if device is None
+              else torch.device(device))
+    cfg = cfg or single_robot_config(frames, scale)
+    dt = SINGLE_DT
+    scene = syn.default_scene(device)
+    traj = syn.orbit_trajectory(frames, scene.room_center.cpu(), radius=2.5)
+    traj_np = traj.numpy()
+    if odom is None:
+        odom = syn.noisy_odometry(torch.Generator().manual_seed(0), traj,
+                                  rot_std=0.004, trans_std=0.01).numpy()
+    odom_np = np.asarray(odom, np.float32)
+
+    timers = runtime.Timers()
+    mapper = sm.HostMapper(cfg, device=device)
+    fence = mapper.state.frame_count
+    _fence(device)
+    t0 = time.perf_counter()
+    for i in range(frames):
+        with timers.scope("render", sync=fence):
+            depth, color = syn.render_depth(scene, cfg.intrinsics,
+                                            upload(traj_np[i], device))
+        with timers.scope("mapper_step", sync=fence):
+            mapper.step(depth, color, odom_np[i], i * dt)
+    wall = time.perf_counter() - t0
+    state, ns = mapper.state, mapper.n_submaps
+    col = state.collection
+
+    gt_stamps = np.arange(frames) * dt
+    stamps, poses_raw = (x.cpu().numpy() for x in sm.trajectory(col))
+    ate_raw = metrics.ate_rmse(stamps, poses_raw, gt_stamps, traj_np,
+                               align=False)
+    # the loop closure: the ground-truth relative pose between the first
+    # and the last submap (detection is the two-robot demo's)
+    start = col.start_time.cpu().numpy()
+    frame_of = [int(round(float(start[k]) / dt)) for k in range(ns)]
+    T_true = traj_np[frame_of]
+    sm.add_loop_closure(state, 0, ns - 1,
+                        upload(geo.relative_np(T_true[0], T_true[ns - 1]),
+                               device),
+                        50.0 * torch.eye(6, device=device))
+    with timers.scope("local_pgo", sync=fence):
+        sm.optimize_local(cfg, state, pg.SolverConfig(iterations=20))
+    stamps_opt, poses_opt = (x.cpu().numpy() for x in sm.trajectory(col))
+    ate_opt = metrics.ate_rmse(stamps_opt, poses_opt, gt_stamps, traj_np,
+                               align=False)
+
+    with timers.scope("merge", sync=fence):
+        merged = sm.merged_layer(cfg, col)
+    with timers.scope("mesh"):
+        verts, cols = mesh_ops.extract_mesh(cfg.spec, merged, min_weight=0.1)
+    sdf = np.abs(syn.scene_sdf(scene, upload(np.ascontiguousarray(
+        verts.reshape(-1, 3)), device)).cpu().numpy())
+
+    tmp = tempfile.TemporaryDirectory() if out is None else None
+    out_dir = tmp.name if out is None else out
+    os.makedirs(out_dir, exist_ok=True)
+    export.write_ply(os.path.join(out_dir, "global_mesh.ply"), verts, cols)
+    export.write_tum_trajectory(os.path.join(out_dir, "trajectory.tum"),
+                                stamps_opt, poses_opt)
+    if tmp is not None:
+        tmp.cleanup()
+    n_tris = int(verts.shape[0])
+    return {"frames": frames, "submaps": ns, "integrate_s": wall,
+            "fps": frames / wall, "ate_raw": ate_raw, "ate_opt": ate_opt,
+            "merged_blocks": int(merged.num_blocks), "triangles": n_tris,
+            "surf_p90": (float(np.quantile(sdf, 0.9)) if n_tris
+                         else math.inf),
+            "timers": json.loads(timers.as_json()),
+            "stamps": stamps, "poses_raw": poses_raw,
+            "poses_opt": poses_opt,
+            "ok": bool(ate_opt < max(2.5 * ate_raw, 0.08)
+                       and n_tris > 1000)}

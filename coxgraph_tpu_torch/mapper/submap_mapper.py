@@ -168,13 +168,17 @@ def _row(x: Tensor, k: Tensor) -> Tensor:
 
 
 def start_submap(cfg: MapperConfig, state: MapperState, T_odom_cam: Tensor,
-                 t: Tensor, go: Optional[Tensor] = None) -> MapperState:
+                 t: Tensor, go: Optional[Tensor] = None,
+                 height_prior: bool = True) -> MapperState:
     """Open a new submap anchored at the current odometry pose and chain an
     odometry constraint from the previous submap, IN PLACE. When the pool
     is saturated (num_submaps == max_submaps) the slot writes AND the
     constraint adds are dropped. ``go`` (a 0-d bool device tensor) makes
     the rollover conditional on the device: where it is False nothing
-    changes (the fleet's per-robot ``lax.cond``, no host read)."""
+    changes (the fleet's per-robot ``lax.cond``, no host read). With
+    ``cfg.height_prior_stddev > 0`` the submap's odom height is recorded
+    as a prior unless ``height_prior`` is False (the fleet, whose solve
+    takes no priors)."""
     col = state.collection
     S = cfg.max_submaps
     k = col.num_submaps.clone()                  # the new slot
@@ -197,7 +201,7 @@ def start_submap(cfg: MapperConfig, state: MapperState, T_odom_cam: Tensor,
         (k > 0) & in_pool,
         state.constraints.add(prev, k, T_prev_new, cfg.odom_sqrt_info * eye),
         state.constraints)
-    if cfg.height_prior_stddev > 0:
+    if height_prior and cfg.height_prior_stddev > 0:
         state.heights = where_fields(
             in_pool,
             state.heights.add(k, T_odom_cam[6], cfg.height_prior_stddev),

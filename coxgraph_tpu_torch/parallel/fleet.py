@@ -110,7 +110,12 @@ def fleet_step(cfg: sm.MapperConfig, mesh: RobotMesh, fleet: Fleet,
     has none or its interval elapsed (a device mask), then integrates its
     frame. Inputs are the whole fleet's — depths (R,H,W), colors (R,H,W,3)
     or None, T_odom_cams (R,7), ts (R,) f32, on ``mesh.device`` — and each
-    rank reads its robots' rows. Issues no device-to-host read."""
+    rank reads its robots' rows. Issues no device-to-host read.
+
+    The rollover records no height prior, whatever
+    ``cfg.height_prior_stddev``: the JAX fleet records none and
+    ``fleet_optimize`` solves with none, so every field of a robot's state,
+    ``heights`` included, equals the JAX fleet's."""
     for i, state in enumerate(fleet.states):
         r = fleet.first + i
         t, T = ts[r], T_odom_cams[r]
@@ -118,7 +123,7 @@ def fleet_step(cfg: sm.MapperConfig, mesh: RobotMesh, fleet: Fleet,
         n = col.num_submaps
         start = sm._row(col.start_time, torch.clamp(n - 1, min=0))
         go = (n == 0) | (t - start >= cfg.submap_interval - 1e-6)
-        sm.start_submap(cfg, state, T, t, go=go)
+        sm.start_submap(cfg, state, T, t, go=go, height_prior=False)
         sm.integrate(cfg, state, depths[r],
                      None if colors is None else colors[r], T, t)
     return fleet

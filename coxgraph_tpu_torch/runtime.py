@@ -3,15 +3,20 @@
 ``require_cuda`` is the gate for every GPU measurement path: it raises
 when no card is visible instead of quietly running on the CPU.
 ``ResourceSampler`` samples this process's CPU share and memory (the
-fusion server's ``state_query`` carries one sample).
+fusion server's ``state_query`` carries one sample). ``Timers`` sums
+scoped wall-clock times by name.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
 import os
 import subprocess
 import threading
 import time
+from collections import defaultdict
+from typing import Dict, Optional
 
 import torch
 
@@ -34,6 +39,47 @@ def gpu_identity() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+class Timers:
+    """Aggregating scoped wall-clock timers, after voxblox timing::Timer /
+    timing::Timing::Print (tsdf_recover.h:63-93); the JAX package's
+    ``utils.runtime.Timers`` with a CUDA fence in place of
+    ``block_until_ready``."""
+
+    def __init__(self):
+        self.total: Dict[str, float] = defaultdict(float)
+        self.count: Dict[str, int] = defaultdict(int)
+
+    @contextlib.contextmanager
+    def scope(self, name: str, sync: Optional[torch.Tensor] = None):
+        """Time the body under ``name``. With ``sync`` (a tensor) the time
+        ends after ``torch.cuda.synchronize`` of its device when that is a
+        card; a CPU tensor needs no fence."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if sync is not None and sync.is_cuda:
+                torch.cuda.synchronize(sync.device)
+            dt = time.perf_counter() - t0
+            self.total[name] += dt
+            self.count[name] += 1
+
+    def report(self) -> str:
+        lines = ["timers:"]
+        for k in sorted(self.total):
+            n = self.count[k]
+            tot = self.total[k]
+            lines.append(f"  {k:32s} n={n:6d} total={tot:8.3f}s "
+                         f"mean={tot / n * 1e3:8.2f}ms")
+        return "\n".join(lines)
+
+    def as_json(self) -> str:
+        return json.dumps(
+            {k: {"n": self.count[k], "total_s": self.total[k]}
+             for k in self.total}
+        )
 
 
 class ResourceSampler:

@@ -995,3 +995,21 @@ def test_recover_layer_on_gpu_matches_cpu(gpu, method):
     for name in ("sdf", "weight"):
         d = (getattr(got, name).cpu() - getattr(want, name)).abs()[both]
         assert float(d.max()) < 5e-3, (name, float(d.max()))
+
+
+@pytest.mark.cuda
+def test_endurance_lap_on_gpu(gpu):
+    """One lap of the endurance mission on the card (its own
+    configuration, burst, 2 robots × 96 frames), its four threads sharing
+    the card: every gate of the mission, K1 once per integrated frame,
+    K2 launched."""
+    from coxgraph_tpu_torch.eval import endurance as en
+
+    cuda_tsdf.LAUNCHES = 0
+    cuda_hamming.LAUNCHES = 0
+    art = en.endurance_run(gpu, laps=1, out=None, log=None)
+    assert art["ok"], (art["gates"], art["optimize_errors"])
+    assert cuda_tsdf.LAUNCHES == sum(art["integrated_frames"]) \
+        == 2 * en.N_LAP
+    assert art["mapper_windows"] == [en.N_LAP // en.WINDOW] * 2
+    assert cuda_hamming.LAUNCHES >= 1

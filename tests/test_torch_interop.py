@@ -182,12 +182,12 @@ for n in names:
     importlib.import_module(n)
 import chip_smoke
 for tool in ("profile_torch_integrate.py", "profile_torch_detect.py",
-             "profile_torch_serve.py",
+             "profile_torch_serve.py", "endurance_run_torch.py",
              "time_k1_variants.py", "time_k2_variants.py"):
     runpy.run_path(os.path.join("tools", tool), run_name="not_main")
 for example in ("two_robot_demo_torch.py", "distributed_demo_torch.py",
                 "experiment_driver_torch.py", "pointcloud_demo_torch.py",
-                "multichip_dryrun_torch.py"):
+                "multichip_dryrun_torch.py", "single_robot_demo_torch.py"):
     runpy.run_path(os.path.join("examples", example), run_name="not_main")
 bad = [m for m, mod in sys.modules.items() if mod is not None and (
     m == "coxgraph_tpu" or m.startswith("coxgraph_tpu.")

@@ -12,7 +12,9 @@ Tolerances: fleet_step per robot as tests/test_torch_mapper.py's
 _assert_state_matches (integers exact, poses 1e-6, pools to that file's
 shares), each robot ≡ the port's mapper_step alone exactly, world 2 ≡
 world 1 exactly; fleet_optimize within 1e-4 of JAX, world 2 ≡ world 1 bit
-for bit, and test_fleet_optimize_aligns_robots' 5e-3 to the truth."""
+for bit, and test_fleet_optimize_aligns_robots' 5e-3 to the truth. The
+same suite runs once more at height_prior_stddev = 0.1, held to JAX's
+programs at that config with the same tolerances."""
 
 import dataclasses
 
@@ -39,6 +41,7 @@ CPU = torch.device("cpu")
 R = tfl.R
 CFG = interop.config_from(tfl.CFG)
 STEPS = 3                       # frames: rollovers at t = 0 and t = 0.2
+HEIGHT_JCFG = dataclasses.replace(tfl.CFG, height_prior_stddev=0.1)
 SAT_STEPS = 9                   # a fifth rollover at t = 0.8: saturated
 
 
@@ -120,6 +123,31 @@ def jax_side():
     out["opt_poses"], out["gt"] = np.asarray(jposes), gt
 
     return inp, out
+
+
+@pytest.fixture(scope="module")
+def heights_side(jax_side):
+    """fleet_step and fleet_optimize at height_prior_stddev = 0.1: JAX's
+    programs and the port's suite at world size 1, on jax_side's inputs →
+    (JAX's robots after STEPS steps, JAX's optimized poses, the port's
+    suite result)."""
+    inp = dict(jax_side[0], cfg=interop.config_from(HEIGHT_JCFG))
+    mesh = jfl.make_robot_mesh(R)
+    fleet = jfl.shard_fleet(jfl.create_fleet(HEIGHT_JCFG, R), mesh)
+    for i in range(STEPS):
+        fleet = jfl.fleet_step(HEIGHT_JCFG, mesh, fleet,
+                               jnp.asarray(inp["depths"][i]),
+                               jnp.asarray(inp["colors"][i]),
+                               jnp.asarray(inp["traj"][:, i]),
+                               jnp.full((R,), i * 0.1))
+    robots = [_np(jfl.robot_state(fleet, r)) for r in range(R)]
+    jfleet, jinter, _ = aligning_problem()
+    _, jposes = jfl.fleet_optimize(HEIGHT_JCFG, mesh,
+                                      jfl.shard_fleet(jfleet, mesh), jinter,
+                                      jpg.SolverConfig(iterations=20))
+    with multihost.single_process(CPU):
+        port = fleet_suite(inp)
+    return robots, np.asarray(jposes), port
 
 
 @pytest.fixture(scope="module")
@@ -222,3 +250,27 @@ def test_fleet_optimize_two_ranks_equal_one(world1, world2):
         np.testing.assert_array_equal(res["opt_poses"], world1["opt_poses"])
         np.testing.assert_array_equal(
             res["opt_fleet_T"], world1["opt_fleet_T"][2 * rank:2 * rank + 2])
+
+
+def test_fleet_with_height_priors_matches_jax(jax_side, heights_side):
+    """At height_prior_stddev = 0.1 the fleet's rollovers record no height
+    prior, as the JAX fleet's (parallel/fleet.py _start_one) record none:
+    each robot's state, its heights pool included (empty), equals JAX's
+    field by field, and fleet_optimize's poses stay within 1e-4 of JAX's.
+    The single-robot mapper at that config does record one a submap."""
+    robots, jposes, port = heights_side
+    inp = jax_side[0]
+    cfg = interop.config_from(HEIGHT_JCFG)
+    for r in range(R):
+        got = _robot(port["fleet"], r)
+        assert int(got["collection.num_submaps"]) == 2
+        assert int(got["heights.count"]) == 0
+        assert int(robots[r]["heights.count"]) == 0
+        _assert_state_matches(_state(robots[r]), _state(got))
+        st = sm.create_mapper(cfg, CPU)
+        for i in range(STEPS):
+            sm.mapper_step(cfg, st, torch.from_numpy(inp["depths"][i, r]),
+                           torch.from_numpy(inp["colors"][i, r]),
+                           torch.from_numpy(inp["traj"][r, i]), i * 0.1)
+        assert int(st.heights.count) == 2
+    np.testing.assert_allclose(port["opt_poses"], jposes, atol=1e-4, rtol=0)

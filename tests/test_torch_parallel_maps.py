@@ -16,7 +16,9 @@ and to the port's sequential merge with test_merge_sharded.py's
 tolerances (weights 1e-5, sdf 1e-4, colour 2e-2 on the voxels both
 observe; observed 4.8e-6 against JAX, 3e-8 against the sequential merge),
 cross resolution within 1e-5 of JAX; the sharded mesh's triangles ≡ the
-sequential extractor's as a set."""
+sequential extractor's as a set. A reference fault: JAX's sharded merge at
+a small max_touched leaves allocated blocks empty, the port's server path
+(sized to the pool) does not."""
 
 import jax
 import jax.numpy as jnp
@@ -58,6 +60,9 @@ FRAME = jnp.concatenate([jgeo.so3_exp(jnp.array([0.031, -0.017, 0.113])),
                          jnp.array([0.0123, -0.0371, 0.0217])])
 DSPEC = jvx.VoxelGridSpec(voxel_size=0.2, voxels_per_side=8, grid_dim=16,
                           max_blocks=256, truncation=0.6)
+# a max_touched below one submap's cover of the merged pool (each of the
+# three covers a few hundred of its 827 blocks)
+CAPPED_TOUCHED = 64
 
 
 def _np(tree) -> dict:
@@ -96,6 +101,8 @@ def jax_side():
     mmesh = Mesh(np.array(jax.devices()[:8]), ("dev",))
     out["merged"] = _np(jms.merge_layers_sharded(
         tms.SPEC, mmesh, layers, poses, max_touched=tms.SPEC.max_blocks))
+    out["capped"] = _np(jms.merge_layers_sharded(
+        tms.SPEC, mmesh, layers, poses, max_touched=CAPPED_TOUCHED))
     out["cross"] = _np(jms.merge_layers_sharded(
         DSPEC, mmesh, layers[:2], poses[:2], src_spec=tms.SPEC,
         max_touched=DSPEC.max_blocks))
@@ -274,3 +281,57 @@ def test_traffic_accounting_matches_jax():
         assert fl.ici_bytes_per_optimize(
             interop.config_from(jm), R, pg.SolverConfig(iterations=3)) == \
             jfl.ici_bytes_per_optimize(jm, R, jpg.SolverConfig(iterations=3))
+
+
+def _empty_blocks(layer: dict) -> int:
+    """Allocated blocks that no voxel of any submap reached."""
+    n = int(layer["num_blocks"])
+    return int((layer["weight"][:n].max(axis=1) <= 0).sum())
+
+
+def test_reference_sharded_merge_drops_blocks_past_max_touched(jax_side,
+                                                               world1):
+    """Reference fault (ROADMAP queue 3): merge_layers_sharded
+    (parallel/merge_sharded.py:162-176) accumulates each submap into only
+    its first max_touched touched destination slots (ops/tsdf.py:189-200,
+    "picked up on later calls"), and a single-pass merge has no later
+    call, so a submap whose cover passes max_touched leaves blocks
+    allocated and empty — the reference's final mesh at its default 4,096
+    on a wider pool; here at 64. The port's server path sizes the merge to
+    the pool (CoxgraphServer._merge_and_mesh, max_touched=max_blocks) and
+    keeps every block the sequential merge keeps; the port's sharded merge
+    at the same small max_touched loses what JAX's loses."""
+    import types
+
+    from coxgraph_tpu_torch.server import fusion_server as fs
+
+    inp, out = jax_side
+    spec = inp["merge_spec"]
+    full = world1["merged"]
+    capped = out["capped"]
+    for name in ("block_index", "block_coords", "num_blocks"):
+        np.testing.assert_array_equal(capped[name], out["merged"][name])
+    lost = _empty_blocks(capped) - _empty_blocks(out["merged"])
+    assert lost > 100, lost
+    assert capped["weight"].sum() < 0.9 * out["merged"]["weight"].sum()
+
+    layers = interop.layers_from_numpy(inp["merge_layers"], CPU)
+    poses = [torch.from_numpy(p) for p in inp["merge_poses"]]
+    server = types.SimpleNamespace(
+        cfg=types.SimpleNamespace(spec=spec), device=CPU,
+        submaps=[types.SimpleNamespace(sid=k, layer=la)
+                 for k, la in enumerate(layers)],
+        _poses=lambda: poses)
+    with multihost.single_process(CPU):
+        mesh = fl.make_robot_mesh(device=CPU)
+        served, verts, _ = fs.CoxgraphServer._merge_and_mesh(
+            server, spec, 0.05, mesh)
+        port_capped = interop.layer_to_numpy(msh.merge_layers_sharded(
+            spec, mesh, layers, poses, max_touched=CAPPED_TOUCHED))
+    served = interop.layer_to_numpy(served)
+    assert _empty_blocks(served) == _empty_blocks(full) \
+        == _empty_blocks(out["merged"])
+    _assert_merge_gates(served, full)
+    assert verts.shape[0] > 100
+    assert _empty_blocks(port_capped) == _empty_blocks(capped)
+    _assert_merge_gates(port_capped, capped)

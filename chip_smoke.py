@@ -16,8 +16,9 @@ VIOInterface, the loop detector and the fusion server), its
 distributed deployment (robot processes on the card serving submaps over
 the native bus, the mesh-with-history transport, point clouds) and its
 parallel tier (an 8-robot fleet, the distributed solve, the sharded ESDF,
-merge and mesh over torch.distributed) and its drivers (the single-robot
-demo, and the endurance mission's four threads on one card) and fails
+merge and mesh over torch.distributed), its drivers (the single-robot
+demo, and the endurance mission's four threads on one card) and its root
+bench entry (bench_torch.py, in a fresh process) and fails
 (nonzero exit, no result line) if anything is wrong:
 
   1. device    — require a CUDA GPU; print nvidia-smi's name and power limit
@@ -171,6 +172,14 @@ demo, and the endurance mission's four threads on one card) and fails
                  no error from any thread or solve, ≥ 1 fusion, max ATE <
                  0.25 m, > 1,000 triangles, surface p90 < 4 voxels, every
                  thread joined, K1 once per integrated frame, K2 launched
+ 16. bench     — ``python3 bench_torch.py`` (the port's root bench entry)
+                 in a fresh process from the repository root: its last
+                 stdout line is bench.py's JSON line, with exactly its
+                 keys (the nine stage keys and the four solve keys in
+                 extra_metrics), value > 0, mesh_tris > 1000, solve_pairs
+                 ≥ 100, dropped_union_blocks 0, and K1 launched once per
+                 frame of its five integration windows (its stderr); the
+                 line printed beside phase 6's in-script headline
 
 The line before the last is the card's nvidia-smi name and power limit,
 the one before it the kernels' JSON record; the last line is
@@ -182,7 +191,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import subprocess
+import sys
 import time
 import warnings
 
@@ -2026,6 +2037,51 @@ def phase_drivers(device, ident):
     return demo_k1, k1, k2, k1_err
 
 
+BENCH_STAGE_KEYS = {
+    "union_watermark", "dropped_union_blocks", "esdf_ms", "esdf_blocks",
+    "mesh_extract_ms", "mesh_tris", "merge_ms", "serve_while_streaming_fps",
+    "serve_live_mesh_tris"}
+BENCH_SOLVE_KEYS = {"two_phase_optimize_s", "two_phase_optimize_best_s",
+                    "solve_submaps", "solve_pairs"}
+
+
+def phase_bench(ident, in_script_fps: float, frames: int) -> None:
+    """Phase 16: ``python3 bench_torch.py`` in a fresh process from the
+    repository root, its JSON line held to bench.py's keys and the bench
+    point's gates. A failing run fails the phase."""
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = subprocess.run(
+        [sys.executable, "bench_torch.py"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=900)
+    for line in out.stderr.splitlines():
+        if line.startswith("# "):
+            print("[16] " + line)
+    if out.returncode != 0:
+        sys.stderr.write(out.stderr[-4000:])
+        raise RuntimeError(f"bench_torch.py exited {out.returncode}")
+    line = json.loads(out.stdout.strip().splitlines()[-1])
+    extra = line["extra_metrics"]
+    k1 = [int(m) for m in re.findall(r"K1 launches (\d+)", out.stderr)]
+    print(f"[16] bench_torch.py, fresh process: {json.dumps(line)}")
+    print(f"[16] tsdf_integration_fps: {line['value']} frames/s in a fresh "
+          f"bench_torch.py, {in_script_fps:.2f} in this script (phase 6); "
+          f"K1 launches {k1} — {ident}")
+    assert set(line) == {"metric", "value", "unit", "vs_baseline",
+                         "extra_metrics"}, line
+    assert line["metric"] == "tsdf_integration_fps", line
+    assert line["unit"] == "frames/s/chip", line
+    assert set(extra) == BENCH_STAGE_KEYS | BENCH_SOLVE_KEYS, extra
+    assert line["value"] > 0 and line["vs_baseline"] > 0, line
+    assert extra["mesh_tris"] > 1000, extra
+    assert extra["solve_pairs"] >= 100, extra
+    assert extra["dropped_union_blocks"] == 0, extra
+    assert k1 == [5 * frames], k1
+    print(f"[16] phase 16 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     from coxgraph_tpu_torch import _build, runtime
     from coxgraph_tpu_torch.eval import benchmarks as bm
@@ -2115,6 +2171,8 @@ def main() -> None:
     print(f"[6] tsdf_integration_fps {fps:.2f} frames/s (4 windows x "
           f"{depths.shape[0]} frames, 640x480, 5 cm) — {ident}")
 
+    n_frames = depths.shape[0]
+
     # ---- 10. serving path --------------------------------------------------
     serve_launches = phase_serving(cfg, device, depths, colors, traj, ident)
     print(f"[10] K1 launches on the serving path: {serve_launches}")
@@ -2147,6 +2205,10 @@ def main() -> None:
     # ---- 15. the drivers ------------------------------------------------
     demo_launches, end_k1, end_k2, k1_err = phase_drivers(device, ident)
     max_err = max(max_err, k1_err)
+    torch.cuda.empty_cache()
+
+    # ---- 16. the bench entry in a fresh process ----------------------------
+    phase_bench(ident, fps, n_frames)
 
     print(json.dumps({"kernels": [{
         "name": "tsdf_update_blocks",

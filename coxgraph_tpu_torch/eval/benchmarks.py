@@ -53,16 +53,20 @@ def _mapper_config():
     )
 
 
-def generate_frames(device, n_frames: int = N_FRAMES):
+def generate_frames(device, n_frames: int = N_FRAMES,
+                    render: int | None = None):
     """Render the bench clip on ``device`` → (depths (N,H,W), colors
-    (N,H,W,3), traj (N,7)), all f32."""
+    (N,H,W,3), traj (N,7)), all f32. ``render``: only the clip's first
+    ``render`` frames (N = ``render``; the orbit still spans
+    ``n_frames``)."""
     from ..frontends import synthetic as syn
 
     cfg = _mapper_config()
     scene = syn.default_scene(device)
     traj = syn.orbit_trajectory(n_frames, scene.room_center, radius=2.5)
+    traj = traj[:render]
     ds, cs = [], []
-    for i in range(n_frames):
+    for i in range(traj.shape[0]):
         d, c = syn.render_depth(scene, cfg.intrinsics, traj[i])
         ds.append(d)
         cs.append(c)

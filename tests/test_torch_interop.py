@@ -168,9 +168,9 @@ def test_solve_state_and_configs_cross_exactly():
 
 def test_port_never_imports_jax():
     """With jax blocked, and PIL and yaml too (the card's machine has
-    neither), every module of the port (and chip_smoke.py, the profiling
-    tools and the torch examples) imports, and coxgraph_tpu is never
-    reached."""
+    neither), every module of the port (and chip_smoke.py, bench_torch.py,
+    the profiling tools and the torch examples) imports, and coxgraph_tpu
+    is never reached."""
     code = r"""
 import importlib, os, pkgutil, runpy, sys
 for blocked in ("jax", "PIL", "yaml"):
@@ -181,9 +181,11 @@ names = [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+runpy.run_path("bench_torch.py", run_name="not_main")
 for tool in ("profile_torch_integrate.py", "profile_torch_detect.py",
              "profile_torch_serve.py", "endurance_run_torch.py",
-             "time_k1_variants.py", "time_k2_variants.py"):
+             "time_k1_variants.py", "time_k2_variants.py",
+             "bench_torch_runs.py"):
     runpy.run_path(os.path.join("tools", tool), run_name="not_main")
 for example in ("two_robot_demo_torch.py", "distributed_demo_torch.py",
                 "experiment_driver_torch.py", "pointcloud_demo_torch.py",

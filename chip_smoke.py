@@ -17,9 +17,11 @@ distributed deployment (robot processes on the card serving submaps over
 the native bus, the mesh-with-history transport, point clouds) and its
 parallel tier (an 8-robot fleet, the distributed solve, the sharded ESDF,
 merge and mesh over torch.distributed), its drivers (the single-robot
-demo, and the endurance mission's four threads on one card) and its root
-bench entry (bench_torch.py, in a fresh process) and fails
-(nonzero exit, no result line) if anything is wrong:
+demo, and the endurance mission's four threads on one card), its root
+bench entry (bench_torch.py, in a fresh process) and its real-sequence
+path (TUM-RGBD fixtures through the mapper, the detector on real texture
+and the intra-client route to the local solve) and fails (nonzero exit,
+no result line) if anything is wrong:
 
   1. device    — require a CUDA GPU; print nvidia-smi's name and power limit
   2. build     — build the kernel library from csrc/ with nvcc (sm_90a);
@@ -180,6 +182,22 @@ bench entry (bench_torch.py, in a fresh process) and fails
                  ≥ 100, dropped_union_blocks 0, and K1 launched once per
                  frame of its five integration windows (its stderr); the
                  line printed beside phase 6's in-script headline
+ 17. replay    — the JAX package's real-sequence tests on the card
+                 (eval.demos): tum_pipeline on tests/fixtures/tum_tiny
+                 (ATE < 5e-3 m, ≥ 2 submaps, > 300 mesh vertices, surface
+                 q90 < 0.3 m), drift_correction on tum_loop (drifted ATE
+                 > 0.045 m, ≥ 1 routed closure, corrected < 0.75 ×
+                 drifted) and on tum_real (drifted > 0.08 m, ≥ 10
+                 closures, ≥ 10 routed, corrected < 0.8 × drifted and <
+                 0.10 m), the mapper's pose mirror equal to the device's;
+                 K1 once per frame, K2 on the detector's path; decode,
+                 upload and step ms a frame, detection ms, syncs and K2
+                 launches a keyframe, routing + local PGO ms and syncs a
+                 routed closure; K1 ≡ its twin (phase 3's gate) on the two
+                 tum_real frames with the most depth holes; K2 ≡ its plain
+                 version on the detector's real-texture pool at its
+                 scoring launch (1 query × 128 slots × 512²) and verify
+                 launch, timed at the former beside its bound
 
 The line before the last is the card's nvidia-smi name and power limit,
 the one before it the kernels' JSON record; the last line is
@@ -561,13 +579,16 @@ def _matmul_route(a, av, b, bv):
         torch.int32)
 
 
-def _k2_bound(B, cap, ka, kb, clock_hz, n_sms):
+def _k2_bound(B, cap, ka, kb, clock_hz, n_sms, pairs=None):
     """K2's least time at one launch shape → (ms, "bytes" or
     "operations", the route of the operation floor, {route: floor ms}).
-    Each of the B·cap·Ka·Kb distances is 8 ``__popc`` on the CUDA cores,
-    or one 256-long ±1 dot product (512 operations) on the tensor cores in
-    int8 or bf16: the bound takes the fastest route."""
-    pairs = B * cap * ka * kb
+    Each distance the function needs (``pairs``; default all B·cap·Ka·Kb)
+    is 8 ``__popc`` on the CUDA cores, or one 256-long ±1 dot product (512
+    operations) on the tensor cores in int8 or bf16: the bound takes the
+    fastest route. The bytes are every input read once and every output
+    written once."""
+    if pairs is None:
+        pairs = B * cap * ka * kb
     n_bytes = (B * ka * 33 + cap * kb * 33          # words + valid bytes
                + 4 * B * cap * (3 * ka + kb))       # d1, i1, d2, best_a
     routes = {"popc": (8, POPC_PER_CLOCK_PER_SM * n_sms * clock_hz),
@@ -2082,6 +2103,229 @@ def phase_bench(ident, in_script_fps: float, frames: int) -> None:
     print(f"[16] phase 16 took {time.perf_counter() - t_phase:.1f} s")
 
 
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "fixtures")
+
+
+def _replay_line(r, syncs, ident) -> str:
+    """One drift_correction run's numbers, with ``replay_syncs``'
+    counts, as a report line."""
+    kf = max(r["keyframes"], 1)
+    return (f"{r['point']}: {r['frames']} frames, {r['keyframes']} "
+            f"keyframes, {r['closures']} closures, {r['routed']} routed; "
+            f"ATE drifted {r['ate_drifted'] * 100:.2f} cm → corrected "
+            f"{r['ate_corrected'] * 100:.2f} cm; decode "
+            f"{1e3 * r['decode_s'] / r['frames']:.2f} ms/frame, upload "
+            f"{1e3 * r['upload_s'] / r['frames']:.3f} ms/frame, step "
+            f"{1e3 * r['step_s'] / r['frames']:.2f} ms/frame (fenced); "
+            f"detection {r['detect_ms_per_keyframe']:.2f} ms/keyframe "
+            f"({syncs['per_keyframe']:.2f} syncs/keyframe, "
+            f"{r['k2_launches'] / kf:.2f} K2 launches/keyframe, "
+            f"{r['k2_launches']} in all); routing + local PGO "
+            f"{r['route_ms_per_routed']:.2f} ms per routed closure over "
+            f"{r['routed']} solves ({syncs['per_routed']:.2f} syncs each); "
+            f"K1 launches {r['k1_launches']}; mirror |d| {r['mirror_err']}"
+            f" — {ident}")
+
+
+def replay_syncs(point, device, timed):
+    """The host syncs of ``drift_correction``'s path at ``point``, counted
+    in a second, untimed run under sync-debug ``warn`` (``count_syncs``,
+    one call at a time, fences outside): the point's detector alone over
+    the clip, then the mapper alone (``map_drifted`` without a detector)
+    and the closures routed one ``map_fusion`` at a time through
+    ``intra_client_server`` → {per_keyframe, per_routed, same}: ``same``
+    says whether this run found ``timed``'s closures and routed flags."""
+    from coxgraph_tpu_torch.eval import demos
+    from coxgraph_tpu_torch.frontends import loop_detector as ld
+
+    cfg, det_cfg, rp, _, _, drifted = demos.replay_inputs(
+        os.path.join(FIXTURES, point), point, device)
+    frames = list(rp)
+    det = ld.LoopDetector(cfg.intrinsics, det_cfg, device)
+    closures, det_syncs = [], 0
+    for f in frames:
+        out, n = count_syncs(
+            lambda f=f: det.add_keyframe(0, f.t, f.color, f.depth))
+        closures += out
+        det_syncs += n
+    mapper = demos.map_drifted(frames, drifted, cfg, None, device)[0]
+    _, server = demos.intra_client_server(cfg, mapper, device)
+    flags, route_syncs = [], 0
+    for mf in closures:
+        ok, n = count_syncs(lambda mf=mf: server.map_fusion(mf))
+        flags.append(bool(ok))
+        route_syncs += n
+
+    def pairs(msgs):
+        return [(m.from_time, m.to_time) for m in msgs]
+
+    return {"per_keyframe": det_syncs / max(det.total_keyframes, 1),
+            "per_routed": route_syncs / max(sum(flags), 1),
+            "same": (pairs(closures) == pairs(timed["closure_msgs"])
+                     and flags == timed["routed_flags"])}
+
+
+def _holey_frames(cfg, device, n: int = 2):
+    """The ``n`` tum_real frames with the most depth holes (zeros from the
+    fixture's dropout and speckle model), as ``k1_against_twin``'s inputs
+    at their ground-truth poses → (frames, hole shares)."""
+    from coxgraph_tpu_torch.frontends import replay
+
+    rp = replay.TumRgbdReplay(os.path.join(FIXTURES, "tum_real"),
+                              intr=cfg.intrinsics, device=device)
+    scored = []
+    for i, (_, rgb, dep, T) in enumerate(rp.associations()):
+        if i % 12:
+            continue
+        depth = replay.read_png(dep).astype(np.float32) / rp.depth_factor
+        scored.append((float((depth == 0).mean()), rgb, depth, T))
+    scored.sort(key=lambda x: -x[0])
+    frames = []
+    for _, rgb, depth, T in scored[:n]:
+        color = replay.read_png(rgb)[..., :3].astype(np.float32) / 255.0
+        frames.append((0, torch.from_numpy(depth).to(device),
+                       torch.from_numpy(color).to(device).permute(
+                           2, 0, 1).contiguous(),
+                       torch.from_numpy(T).to(device)))
+    return frames, [x[0] for x in scored[:n]]
+
+
+def replay_k2(det, device, ident):
+    """K2 ≡ its plain version on the real-texture descriptors of the
+    replay detector's pool: its scoring launch (one keyframe against the
+    detector's ``match_chunk`` slots) and its verify launch's form (3
+    keyframes, each against another's slot, b per query); then its times
+    at the scoring launch → record (ms, device_ms, plain_ms, bound_ms,
+    bound_by). The bound counts the distances this launch's data needs:
+    the kernel gives invalid rows and columns closed-form outputs, so
+    only valid query rows × valid pool rows need one."""
+    from coxgraph_tpu_torch.ops import cuda_hamming as ch
+
+    n_live, slots = det.n_keyframes, det.cfg.match_chunk
+    assert n_live >= slots // 2, (n_live, slots)
+    desc, valid = det._db_desc, det._db_valid
+    q = n_live - 1                               # the last keyframe
+    a, av = desc[q:q + 1].contiguous(), valid[q:q + 1].contiguous()
+    b = desc[None, :slots].contiguous()
+    bv = valid[None, :slots].contiguous()
+    got = ch.match_topk(a, av, b, bv, BIG, BIG)
+    want = ch.match_topk_reference(a, av, b, bv, BIG, BIG)
+    for x, y, name in zip(got, want, ("d1", "i1", "d2", "best_a")):
+        assert x.dtype == y.dtype == torch.int32 and torch.equal(x, y), name
+    rows = torch.tensor([0, n_live // 2, q], device=device)
+    va, vb = desc[rows].contiguous(), desc[rows.flip(0)][:, None]
+    vav, vbv = valid[rows].contiguous(), valid[rows.flip(0)][:, None]
+    got_v = ch.match_topk(va, vav, vb.contiguous(), vbv.contiguous(), BIG,
+                          BIG)
+    want_v = ch.match_topk_reference(va, vav, vb, vbv, BIG, BIG)
+    for x, y, name in zip(got_v, want_v, ("d1", "i1", "d2", "best_a")):
+        assert torch.equal(x, y), ("verify", name)
+    n_match = int((got[0] <= 64).sum())
+    times = {}
+    fns = {"kernel": lambda: ch.match_topk(a, av, b, bv, BIG, BIG),
+           "plain": lambda: ch.match_topk_reference(a, av, b, bv, BIG, BIG)}
+    for tag in ("plain", "kernel", "graph", "kernel", "graph", "plain"):
+        times.setdefault(tag, []).append(
+            _graph_ms(fns["kernel"]) if tag == "graph"
+            else _time_ms(fns[tag], 20 if tag == "kernel" else 5))
+    clock, n_sms = _sm_clock_hz(), torch.cuda.get_device_properties(
+        0).multi_processor_count
+    K = a.shape[1]
+    n_a, n_b = int(av.sum()), int(bv.sum())
+    live_slots = int(bv[0].any(-1).sum())
+    bound, by, route, floors = _k2_bound(1, slots, K, K, clock, n_sms,
+                                         pairs=n_a * n_b)
+    dense, dense_by, _, _ = _k2_bound(1, slots, K, K, clock, n_sms)
+    rec = dict(ms=min(times["kernel"]), device_ms=min(times["graph"]),
+               plain_ms=min(times["plain"]), bound_ms=bound, bound_by=by)
+    print(f"[17] K2 ≡ plain on tum_real descriptors: the scoring launch "
+          f"(1 x {slots} slots x {K}^2, {n_a} valid query keypoints, "
+          f"{n_b} valid pool keypoints in {live_slots} live slots, "
+          f"{n_match} rows with d1 <= 64) and the verify launch (3 x 1 x "
+          f"{K}^2), every output; scoring launch kernel "
+          f"{rec['ms'] * 1e3:.1f} us {times['kernel']} back to back, "
+          f"device {rec['device_ms'] * 1e3:.1f} us {times['graph']}, plain "
+          f"{rec['plain_ms'] * 1e3:.1f} us {times['plain']}; bound "
+          f"{bound * 1e3:.2f} us ({by}) over the {n_a} x {n_b} valid "
+          f"pairs (operation floors "
+          f"{ {k: round(v * 1e3, 3) for k, v in floors.items()} } us); "
+          f"over every {1 * slots * K * K} pairs it would be "
+          f"{dense * 1e3:.2f} us ({dense_by}) — {ident}")
+    return rec
+
+
+def phase_replay(device, ident):
+    """Phase 17: the real-sequence path (eval.demos.tum_pipeline on
+    tum_tiny, drift_correction on tum_loop and tum_real) with the JAX
+    tests' gates, K1 ≡ its twin on tum_real frames with depth holes and
+    K2 ≡ its plain version on the detector's real-texture descriptors →
+    (K1 launches, K2 launches, K1's max |Δ|, K2's record at the scoring
+    launch)."""
+    from coxgraph_tpu_torch.eval import demos
+    from coxgraph_tpu_torch.ops import cuda_hamming, cuda_tsdf
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cuda_tsdf.LAUNCHES = 0
+    cuda_hamming.LAUNCHES = 0
+    t0 = time.perf_counter()
+    tiny = demos.tum_pipeline(os.path.join(FIXTURES, "tum_tiny"), device)
+    tiny_s = time.perf_counter() - t0
+    k1, k2 = cuda_tsdf.LAUNCHES, cuda_hamming.LAUNCHES
+    print(f"[17] tum_tiny: {tiny['frames']} frames → {tiny['submaps']} "
+          f"submaps, ATE {tiny['ate']:.3e} m, {tiny['vertices']} mesh "
+          f"vertices, surface q90 {tiny['surf_q90'] * 100:.3f} cm; decode "
+          f"{1e3 * tiny['decode_s'] / tiny['frames']:.2f} ms/frame, step "
+          f"{1e3 * tiny['step_s'] / tiny['frames']:.2f} ms/frame; K1 "
+          f"launches {k1}; {tiny_s:.2f} s — {ident}")
+    assert tiny["ok"] and tiny["ate"] < 5e-3 and tiny["submaps"] >= 2
+    assert tiny["vertices"] > 300 and tiny["surf_q90"] < 0.3, tiny["surf_q90"]
+    assert k1 == tiny["frames"] == 10 and k2 == 0, (k1, k2)
+    k1_all, k2_all = k1, 0
+    runs = {}
+    for point in ("tum_loop", "tum_real"):
+        cuda_tsdf.LAUNCHES = 0
+        cuda_hamming.LAUNCHES = 0
+        t0 = time.perf_counter()
+        r = demos.drift_correction(os.path.join(FIXTURES, point), point,
+                                   device)
+        wall = time.perf_counter() - t0
+        k1, k2 = cuda_tsdf.LAUNCHES, cuda_hamming.LAUNCHES
+        t0 = time.perf_counter()
+        syncs = replay_syncs(point, device, r)
+        print(f"[17] {_replay_line(r, syncs, ident)}; {wall:.2f} s (the "
+              f"sync count's untimed run {time.perf_counter() - t0:.2f} s,"
+              f" the same closures and routing: {syncs['same']})")
+        g = demos.REPLAY_GATES[point]
+        assert r["ate_drifted"] > g["min_drifted"], r["ate_drifted"]
+        assert r["closures"] >= g["min_closures"], r["closures"]
+        assert r["routed"] >= g["min_routed"], r["routed"]
+        assert r["ate_corrected"] < g["ratio"] * r["ate_drifted"], (
+            r["ate_corrected"], r["ate_drifted"])
+        assert r["ate_corrected"] < g["max_corrected"], r["ate_corrected"]
+        assert r["ok"] and r["mirror_err"] == 0.0, r["mirror_err"]
+        assert k1 == r["k1_launches"] == r["frames"] == 144, k1
+        assert k2 == r["k2_launches"] > 0, k2
+        k1_all += k1
+        k2_all += k2
+        runs[point] = r
+    real = runs["tum_real"]
+    cfg = demos.tum_real_config()[0]
+    frames, holes = _holey_frames(cfg, device)
+    print(f"[17] K1 ≡ twin on tum_real frames with depth holes (hole "
+          f"shares {[round(h, 4) for h in holes]})")
+    k1_err, _ = k1_against_twin(cfg, device, frames, "17")
+    assert min(holes) > 0.001, holes
+    k2_rec = replay_k2(real["detector"], device, ident)
+    wall = time.perf_counter() - t_phase
+    print(f"[17] replay path: K1 launches {k1_all} (one per frame: 10 + "
+          f"144 + 144), K2 launches {k2_all}; phase 17 took {wall:.1f} s "
+          f"— {ident}")
+    return k1_all, k2_all, k1_err, k2_rec
+
+
 def main() -> None:
     from coxgraph_tpu_torch import _build, runtime
     from coxgraph_tpu_torch.eval import benchmarks as bm
@@ -2210,6 +2454,11 @@ def main() -> None:
     # ---- 16. the bench entry in a fresh process ----------------------------
     phase_bench(ident, fps, n_frames)
 
+    # ---- 17. real RGB-D sequences -----------------------------------------
+    replay_k1, replay_k2_launches, k1_err, k2_replay = phase_replay(device,
+                                                                    ident)
+    max_err = max(max_err, k1_err)
+
     print(json.dumps({"kernels": [{
         "name": "tsdf_update_blocks",
         "route": "cuda",
@@ -2227,6 +2476,7 @@ def main() -> None:
         "fleet_launches": fleet_launches,
         "single_robot_launches": demo_launches,
         "endurance_launches": end_k1,
+        "replay_launches": replay_k1,
     }, {
         "name": "hamming_topk",
         "route": "cuda",
@@ -2246,6 +2496,12 @@ def main() -> None:
         "pool_ms": k2["pool_ms"],
         "pool_device_ms": k2["pool_device_ms"],
         "endurance_launches": end_k2,
+        "replay_launches": replay_k2_launches,
+        "replay_ms": k2_replay["ms"],
+        "replay_device_ms": k2_replay["device_ms"],
+        "replay_plain_ms": k2_replay["plain_ms"],
+        "replay_bound_ms": k2_replay["bound_ms"],
+        "replay_bound_by": k2_replay["bound_by"],
     }]}))
     print(ident)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,14 @@ its own OS process on the card, serving its submaps over the native bus
 to a fusion server in this process. ``pointcloud_demo`` is
 ``examples/pointcloud_demo.py``: unordered clouds through
 ``HostMapper.step_points``.
+
+The real-sequence flows are the JAX package's replay tests:
+``tum_pipeline`` is ``tests/test_tum_replay.py``'s full-pipeline check on
+``tum_tiny``, ``drift_correction`` its drift-correction test on
+``tum_loop`` and ``tests/test_real_replay.py``'s on ``tum_real`` (drifted
+odometry, the loop detector on the decoded frames, every closure routed
+through the server's intra-client branch to the local solve), at the
+operating points of ``tum_loop_config`` and ``tum_real_config``.
 """
 
 from __future__ import annotations
@@ -925,3 +933,289 @@ def single_robot_demo(device=None, frames: int = 60, scale: float = 0.25,
             "poses_opt": poses_opt,
             "ok": bool(ate_opt < max(2.5 * ate_raw, 0.08)
                        and n_tris > 1000)}
+
+
+# ---------------------------------------------------------------------------
+# Real RGB-D sequences: tests/test_tum_replay.py and tests/test_real_replay.py
+# ---------------------------------------------------------------------------
+
+
+def _tum_spec() -> vx.VoxelGridSpec:
+    """The real-data grid: 0.1 m voxels, 8³ blocks, 1,024 blocks."""
+    return vx.VoxelGridSpec(voxel_size=0.1, voxels_per_side=8, grid_dim=32,
+                            max_blocks=1024, truncation=0.3)
+
+
+def tum_tiny_config() -> sm.MapperConfig:
+    """``tests/test_tum_replay.py``'s CFG (:20-26): 80×60, 8 submaps of
+    64 poses, a submap every 0.35 s."""
+    return sm.MapperConfig(
+        spec=_tum_spec(),
+        integrator=tsdf_ops.TsdfIntegratorConfig(max_touched_blocks=512),
+        intrinsics=syn.PinholeIntrinsics().scaled(0.125),
+        max_submaps=8, max_history=64, submap_interval=0.35)
+
+
+def _drift_mapper_config(**kw) -> sm.MapperConfig:
+    """The drift tests' mapper: 160×120, 20 submaps of 48 poses, a submap
+    a second, height priors at 0.1 m."""
+    return sm.MapperConfig(
+        spec=_tum_spec(),
+        integrator=tsdf_ops.TsdfIntegratorConfig(max_touched_blocks=512),
+        intrinsics=syn.PinholeIntrinsics().scaled(0.25),
+        max_submaps=20, max_history=48, submap_interval=1.0,
+        height_prior_stddev=0.1, **kw)
+
+
+def tum_loop_config():
+    """(MapperConfig, LoopDetectorConfig, drift recipe) of
+    ``tests/test_tum_replay.py::test_tum_loop_drift_correction``: the
+    mapper of :125-133, the detector of :160-166 (K = 384, a keyframe
+    every 0.4 s, closures weighted 100) and the bias of :140-152."""
+    det = ld.LoopDetectorConfig(
+        features=ft.FeatureConfig(max_keypoints=384),
+        min_match_score=25, min_inliers=15,
+        keyframe_stride=0.4, min_time_separation=5.0, sqrt_info=100.0)
+    return (_drift_mapper_config(), det,
+            {"yaw_bias": 0.0045, "fwd_bias": 0.0045})
+
+
+def tum_real_config():
+    """(MapperConfig, LoopDetectorConfig, drift recipe) of
+    ``tests/test_real_replay.py::test_real_texture_drift_correction``: the
+    mapper of :63-74 (the local solve with Huber at 1.5), the detector of
+    :107-112 (K = 512, a 0.1 s keyframe stride, 3 candidates) and the bias
+    of :80-92."""
+    from ..solver import pose_graph as pg
+
+    det = ld.LoopDetectorConfig(
+        features=ft.FeatureConfig(max_keypoints=512),
+        min_match_score=16, min_inliers=10, min_inlier_spread=0.4,
+        max_candidates=3, keyframe_stride=0.1, min_time_separation=4.0,
+        sqrt_info=100.0)
+    return (_drift_mapper_config(
+        local_solver=pg.SolverConfig(huber_delta=1.5)), det,
+        {"yaw_bias": 0.009, "fwd_bias": 0.009})
+
+
+REPLAY_POINTS = {"tum_loop": tum_loop_config, "tum_real": tum_real_config}
+# the JAX tests' gates: drifted ATE above, closures and routed closures at
+# least, corrected ATE below ratio × drifted and below max_corrected (m)
+REPLAY_GATES = {
+    "tum_loop": {"min_drifted": 0.045, "min_closures": 1, "min_routed": 1,
+                 "ratio": 0.75, "max_corrected": math.inf},
+    "tum_real": {"min_drifted": 0.08, "min_closures": 10, "min_routed": 10,
+                 "ratio": 0.8, "max_corrected": 0.10},
+}
+TINY_ATE_GATE = 5e-3      # m, tum_tiny's trajectory against groundtruth.txt
+TINY_SURFACE_GATE = 3.0   # voxels, tum_tiny's mesh surface q90
+
+
+def drifted_odometry(gt, seed: int = 11, sigma: float = 0.0015,
+                     yaw_bias: float = 0.0, fwd_bias: float = 0.0
+                     ) -> np.ndarray:
+    """The drift tests' odometry (``test_tum_replay.py:140-152``,
+    ``test_real_replay.py:80-92``): each ground-truth relative motion of
+    ``gt`` (N,7) composed with ``se3_exp`` of numpy noise (seed ``seed``,
+    σ ``sigma``) plus ``yaw_bias`` on rz and ``fwd_bias`` on x, chained
+    from ``gt[0]`` → (N,7) f32. The reference's geometry, small angles
+    included."""
+    rng = np.random.default_rng(seed)
+    gt = [np.asarray(T, np.float32) for T in gt]
+    drifted = [gt[0]]
+    for k in range(1, len(gt)):
+        T_rel = geo.relative_np(gt[k - 1], gt[k])
+        noise = rng.normal(0, sigma, 6).astype(np.float32)
+        noise[2] += yaw_bias
+        noise[3] += fwd_bias
+        T_rel = geo.compose_np(T_rel,
+                               geo.se3_exp(torch.from_numpy(noise)).numpy())
+        drifted.append(geo.compose_np(drifted[-1], T_rel))
+    return np.stack(drifted)
+
+
+def tum_pipeline(root: str, device=None) -> dict:
+    """``tests/test_tum_replay.py::test_tum_replay_full_pipeline`` on
+    ``device`` (None: the card): the TUM directory ``root`` through
+    ``TumRgbdReplay`` and ``HostMapper.step`` at ``tum_tiny_config``, the
+    trajectory's ATE against groundtruth.txt (Umeyama-aligned, 20 ms
+    association), the merged map's mesh (min weight 0.1) against the
+    analytic scene.
+
+    → frames, submaps, ATE (m), mesh vertices, surface q90 (m), host
+    seconds decoding / uploading / stepping (a fence a step), the
+    trajectory (numpy), the mapper, and ``ok``: the JAX test's gates
+    (ATE < 5 mm, ≥ 2 submaps, > 300 vertices, q90 < 3 voxels)."""
+    from ..frontends import replay
+    from ..ops import mesh as mesh_ops
+
+    device = (runtime.require_cuda() if device is None
+              else torch.device(device))
+    cfg = tum_tiny_config()
+    rp = replay.TumRgbdReplay(root, intr=cfg.intrinsics, device=device)
+    mapper = sm.HostMapper(cfg, device=device)
+    n, step_s = 0, 0.0
+    for f in rp:
+        t0 = time.perf_counter()
+        mapper.step(f.depth, f.color, f.T_odom_cam, f.t)
+        _fence(device)
+        step_s += time.perf_counter() - t0
+        n += 1
+    col = mapper.state.collection
+    stamps, poses = (x.cpu().numpy() for x in sm.trajectory(col))
+    stamps_gt, poses_gt = rp.groundtruth()
+    ate = metrics.ate_rmse(stamps, poses, stamps_gt, poses_gt, max_dt=0.02)
+    layer = sm.merged_layer(cfg, col)
+    verts, _ = mesh_ops.extract_mesh(cfg.spec, layer, min_weight=0.1)
+    pts = np.ascontiguousarray(verts.reshape(-1, 3))
+    scene = syn.default_scene(device)
+    sdf = np.abs(syn.scene_sdf(scene, upload(pts, device)).cpu().numpy())
+    q90 = float(np.quantile(sdf, 0.9)) if len(pts) else math.inf
+    return {"frames": n, "submaps": mapper.n_submaps, "ate": ate,
+            "vertices": int(pts.shape[0]), "surf_q90": q90,
+            "decode_s": rp.decode_s, "upload_s": rp.upload_s,
+            "step_s": step_s, "stamps": stamps, "poses": poses,
+            "mapper": mapper,
+            "ok": bool(ate < TINY_ATE_GATE and mapper.n_submaps >= 2
+                       and pts.shape[0] > 300
+                       and q90 < TINY_SURFACE_GATE * cfg.spec.voxel_size)}
+
+
+def replay_inputs(root: str, point: str, device=None):
+    """The drift tests' inputs for the TUM directory ``root`` at the
+    operating point ``point`` ("tum_loop" or "tum_real") → (MapperConfig,
+    LoopDetectorConfig, the replay on ``device`` (None: the card), the
+    frames' stamps (N,), ground truth (N,7) and drifted odometry (N,7))."""
+    from ..frontends import replay
+
+    device = (runtime.require_cuda() if device is None
+              else torch.device(device))
+    cfg, det_cfg, drift = REPLAY_POINTS[point]()
+    rp = replay.TumRgbdReplay(root, intr=cfg.intrinsics, device=device)
+    assoc = rp.associations()
+    stamps = np.asarray([a[0] for a in assoc])
+    gt = np.stack([a[3] for a in assoc])
+    return cfg, det_cfg, rp, stamps, gt, drifted_odometry(gt, **drift)
+
+
+def map_drifted(rp, drifted, cfg: sm.MapperConfig,
+                det_cfg: Optional[ld.LoopDetectorConfig], device,
+                generator: Optional[torch.Generator] = None):
+    """The frames of the replay ``rp`` through ``HostMapper.step`` at the
+    odometry ``drifted`` (N,7), and each through
+    ``LoopDetector.add_keyframe(0, t, color, depth)``: the drift tests'
+    loop → (mapper, detector, closures, stats). ``det_cfg`` None maps
+    without a detector, for routing closures made elsewhere. ``stats``:
+    frames, keyframes, host seconds stepping and detecting (a fence after
+    each call), K1 and K2 launches."""
+    from ..ops import cuda_hamming, cuda_tsdf
+
+    mapper = sm.HostMapper(cfg, device=device)
+    det = (None if det_cfg is None
+           else ld.LoopDetector(cfg.intrinsics, det_cfg, device))
+    k1, k2 = cuda_tsdf.LAUNCHES, cuda_hamming.LAUNCHES
+    closures, n, step_s, detect_s = [], 0, 0.0, 0.0
+    for f, T in zip(rp, drifted):
+        t0 = time.perf_counter()
+        mapper.step(f.depth, f.color, np.asarray(T, np.float32), f.t)
+        _fence(device)
+        t1 = time.perf_counter()
+        step_s += t1 - t0
+        n += 1
+        if det is None:
+            continue
+        closures.extend(det.add_keyframe(0, f.t, f.color, f.depth,
+                                         generator=generator))
+        _fence(device)
+        detect_s += time.perf_counter() - t1
+    return mapper, det, closures, {
+        "frames": n, "keyframes": 0 if det is None else det.total_keyframes,
+        "step_s": step_s, "detect_s": detect_s,
+        "k1_launches": cuda_tsdf.LAUNCHES - k1,
+        "k2_launches": cuda_hamming.LAUNCHES - k2}
+
+
+def intra_client_server(cfg: sm.MapperConfig, mapper: sm.HostMapper,
+                        device):
+    """The drift tests' server: an ``InProcessClient`` over the mapper's
+    state (its ``mapper`` hook set, so each local solve refreshes the
+    mapper's pose mirror) behind a ``CoxgraphServer`` with no refuse
+    interval → (client, server)."""
+    client = InProcessClient(0, cfg, mapper.state)
+    client.mapper = mapper
+    return client, fs.CoxgraphServer(
+        fs.ServerConfig(spec=cfg.spec, refuse_interval=0.0), [client],
+        device)
+
+
+def route_closures(cfg: sm.MapperConfig, mapper: sm.HostMapper, closures,
+                   device):
+    """The drift tests' routing: ``map_fusion`` of every closure on an
+    ``intra_client_server`` — the intra-client branch, then
+    ``receive_loop_closure`` and ``optimize_local`` (a fence after each
+    call) → (client, routed flags, stats). ``stats``: host seconds
+    routing, and the largest |Δ| between the mapper's pose mirror and the
+    device's submap poses after the last solve."""
+    client, server = intra_client_server(cfg, mapper, device)
+    flags, route_s = [], 0.0
+    for mf in closures:
+        t0 = time.perf_counter()
+        flags.append(bool(server.map_fusion(mf)))
+        _fence(device)
+        route_s += time.perf_counter() - t0
+    col = mapper.state.collection
+    dev_T = col.T_odom_submap[:mapper.n_submaps].cpu().numpy()
+    host_T = np.stack(mapper.host_T_odom_submap)
+    return client, flags, {
+        "route_s": route_s,
+        "mirror_err": float(np.abs(dev_T - host_T).max())}
+
+
+def drift_correction(root: str, point: str, device=None,
+                     generator: Optional[torch.Generator] = None) -> dict:
+    """SLAM under drift on a TUM directory (``point`` "tum_loop": the flow
+    of ``tests/test_tum_replay.py::test_tum_loop_drift_correction``;
+    "tum_real": ``tests/test_real_replay.py::
+    test_real_texture_drift_correction``) on ``device`` (None: the card):
+    ``replay_inputs``, ``map_drifted`` with the point's detector (RANSAC
+    drawing from ``generator``, else the detector's seeded one),
+    ``route_closures``, then the client's pose history against the ground
+    truth (``metrics.ate_rmse``, aligned).
+
+    → frames, keyframes, closures, routed, ATE drifted and corrected (m),
+    host seconds decoding / uploading / stepping / detecting / routing,
+    ms per keyframe of detection and per routed closure of routing plus
+    its local solve, K1 and K2 launches, the pose mirror's error, ``ok``
+    (the JAX test's gates, ``REPLAY_GATES``) and, for further checks, the
+    mapper, detector, client and closures."""
+    cfg, det_cfg, rp, stamps, gt, drifted = replay_inputs(root, point,
+                                                          device)
+    device = rp.device
+    ate_drifted = metrics.ate_rmse(stamps, drifted, stamps, gt)
+    mapper, det, closures, st = map_drifted(rp, drifted, cfg, det_cfg,
+                                            device, generator)
+    client, flags, rt = route_closures(cfg, mapper, closures, device)
+    stamps_c, poses_c = client.get_pose_history()
+    ate_corrected = metrics.ate_rmse(stamps_c, poses_c, stamps, gt)
+    routed = sum(flags)
+    g = REPLAY_GATES[point]
+    ok = (ate_drifted > g["min_drifted"]
+          and len(closures) >= g["min_closures"]
+          and routed >= g["min_routed"]
+          and ate_corrected < g["ratio"] * ate_drifted
+          and ate_corrected < g["max_corrected"]
+          and rt["mirror_err"] == 0.0)
+    kf = max(st["keyframes"], 1)
+    return {"point": point, "frames": st["frames"],
+            "keyframes": st["keyframes"], "closures": len(closures),
+            "routed": routed, "ate_drifted": ate_drifted,
+            "ate_corrected": ate_corrected, "decode_s": rp.decode_s,
+            "upload_s": rp.upload_s, "step_s": st["step_s"],
+            "detect_s": st["detect_s"], "route_s": rt["route_s"],
+            "detect_ms_per_keyframe": 1e3 * st["detect_s"] / kf,
+            "route_ms_per_routed": 1e3 * rt["route_s"] / max(routed, 1),
+            "k1_launches": st["k1_launches"],
+            "k2_launches": st["k2_launches"],
+            "mirror_err": rt["mirror_err"], "ok": bool(ok),
+            "routed_flags": flags, "closure_msgs": closures,
+            "mapper": mapper, "detector": det, "client": client}

@@ -27,8 +27,9 @@ import dataclasses
 import math
 import os
 import struct
+import time
 import zlib
-from typing import Iterator, NamedTuple, Optional
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -196,7 +197,14 @@ class TumRgbdReplay:
     Depth PNGs are 16-bit, millimetre-scaled by ``depth_factor`` (5000).
     Frames go to ``device`` (None: the card). ``rebase_time`` moves stamps
     to start near 0 (``t0`` = the first served frame's stamp): epoch
-    stamps (~1.3e9 s) in f32 device arrays quantize to ~128 s."""
+    stamps (~1.3e9 s) in f32 device arrays quantize to ~128 s.
+
+    ``associations()`` lists the served frames' stamps, files and ground
+    truth without decoding an image, ``groundtruth()`` the whole ground
+    truth. Iteration decodes each frame on the host (``read_png``) and
+    copies it up with a plain ``.to(device)``; ``decode_s`` and
+    ``upload_s`` sum the two, in host seconds, over the frames served
+    since the last ``__iter__`` began."""
 
     root: str
     intr: syn.PinholeIntrinsics = syn.PinholeIntrinsics()
@@ -205,6 +213,8 @@ class TumRgbdReplay:
     rebase_time: bool = True
     t0: float = 0.0
     device: Optional[torch.device] = None
+    decode_s: float = dataclasses.field(default=0.0, init=False)
+    upload_s: float = dataclasses.field(default=0.0, init=False)
 
     def _read_list(self, name):
         rows = []
@@ -217,9 +227,20 @@ class TumRgbdReplay:
                 rows.append((float(parts[0]), parts[1:]))
         return rows
 
-    def __iter__(self) -> Iterator[Frame]:
-        device = (runtime.require_cuda() if self.device is None
-                  else self.device)
+    def groundtruth(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Every row of groundtruth.txt → (stamps − t0 (N,), poses (N,7)
+        [qw qx qy qz tx ty tz]) (``tests/test_tum_replay.py``'s
+        ``read_groundtruth``)."""
+        gt = self._read_list("groundtruth.txt")
+        v = np.array([[float(x) for x in p] for _, p in gt])  # tx..qw
+        return (np.array([t for t, _ in gt]) - self.t0,
+                v[:, [6, 3, 4, 5, 0, 1, 2]])
+
+    def associations(self) -> List[Tuple[float, str, str, np.ndarray]]:
+        """[(t − t0, rgb file, depth file, T_world_cam (7,) f32)] of the
+        frames iteration serves: each colour stamp with the nearest depth
+        stamp within 30 ms, and the ground-truth pose after it. Sets
+        ``t0``."""
         rgb = self._read_list("rgb.txt")
         dep = self._read_list("depth.txt")
         gt = self._read_list("groundtruth.txt")
@@ -228,26 +249,38 @@ class TumRgbdReplay:
         dep_t = np.array([t for t, _ in dep])
         if self.rebase_time and rgb:
             self.t0 = rgb[0][0]
-        n = 0
+        out = []
         for t, (rgb_path,) in rgb:
-            if self.max_frames is not None and n >= self.max_frames:
+            if self.max_frames is not None and len(out) >= self.max_frames:
                 break
             j = int(np.argmin(np.abs(dep_t - t)))
             if abs(dep_t[j] - t) > 0.03:
                 continue
             k = int(np.clip(np.searchsorted(gt_t, t), 1, len(gt_t) - 1))
             tx, ty, tz, qx, qy, qz, qw = gt_p[k]
-            T = np.array([qw, qx, qy, qz, tx, ty, tz], np.float32)
-            depth = np.asarray(read_png(os.path.join(self.root,
-                                                     dep[j][1][0])),
+            out.append((t - self.t0, os.path.join(self.root, rgb_path),
+                        os.path.join(self.root, dep[j][1][0]),
+                        np.array([qw, qx, qy, qz, tx, ty, tz], np.float32)))
+        return out
+
+    def __iter__(self) -> Iterator[Frame]:
+        device = (runtime.require_cuda() if self.device is None
+                  else self.device)
+        self.decode_s = self.upload_s = 0.0
+        for t, rgb_path, depth_path, T in self.associations():
+            t0 = time.perf_counter()
+            depth = np.asarray(read_png(depth_path),
                                np.float32) / self.depth_factor
-            color = np.asarray(read_png(os.path.join(self.root, rgb_path)),
+            color = np.asarray(read_png(rgb_path),
                                np.float32)[..., :3] / 255.0
-            yield Frame(t=t - self.t0,
-                        depth=torch.from_numpy(depth).to(device),
-                        color=torch.from_numpy(color).to(device),
-                        T_world_cam=T, T_odom_cam=T)
-            n += 1
+            t1 = time.perf_counter()
+            depth_d = torch.from_numpy(depth).to(device)
+            color_d = torch.from_numpy(color).to(device)
+            self.decode_s += t1 - t0
+            self.upload_s += time.perf_counter() - t1
+            yield Frame(t=t, depth=depth_d, color=color_d, T_world_cam=T,
+                        T_odom_cam=T)
+
 
 
 def two_robot_experiment(scene: Optional[syn.Scene] = None,

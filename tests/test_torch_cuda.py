@@ -14,6 +14,7 @@ exact (integers). The loop detector on the card vs on the CPU: slot
 tables, scores and message pairs exact."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -1013,3 +1014,122 @@ def test_endurance_lap_on_gpu(gpu):
         == 2 * en.N_LAP
     assert art["mapper_windows"] == [en.N_LAP // en.WINDOW] * 2
     assert cuda_hamming.LAUNCHES >= 1
+
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures")
+
+
+def _real_frame(index: int, device):
+    """tum_real frame ``index`` decoded on the host → (depth, colour, T)
+    on ``device``, and its share of depth holes."""
+    from coxgraph_tpu_torch.frontends import replay
+
+    _, rgb, dep, T = replay.TumRgbdReplay(
+        os.path.join(FIXTURES, "tum_real"), device=device).associations()[
+            index]
+    depth = replay.read_png(dep).astype(np.float32) / 5000.0
+    color = replay.read_png(rgb)[..., :3].astype(np.float32) / 255.0
+    return ((torch.from_numpy(depth).to(device),
+             torch.from_numpy(color).to(device), torch.from_numpy(T).to(
+                 device)), float((depth == 0).mean()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("point", ["tum_loop", "tum_real"])
+def test_drift_correction_gates_on_gpu(gpu, point):
+    """The JAX drift tests' flows on the card (tests/test_tum_replay.py,
+    tests/test_real_replay.py): every gate, K1 once a frame, K2 on the
+    detector's path, the mapper's pose mirror equal to the device's."""
+    from coxgraph_tpu_torch.eval import demos
+
+    cuda_tsdf.LAUNCHES = 0
+    cuda_hamming.LAUNCHES = 0
+    r = demos.drift_correction(os.path.join(FIXTURES, point), point, gpu)
+    assert r["ok"], {k: r[k] for k in ("closures", "routed", "ate_drifted",
+                                       "ate_corrected", "mirror_err")}
+    assert cuda_tsdf.LAUNCHES == r["k1_launches"] == r["frames"] == 144
+    assert cuda_hamming.LAUNCHES == r["k2_launches"] > 0
+
+
+@pytest.mark.cuda
+def test_tum_pipeline_on_gpu_matches_cpu(gpu):
+    """tum_tiny through tum_pipeline on the card and on the CPU: the same
+    submaps, the trajectory within 1e-6, both within the JAX test's
+    gates, the mesh's surface q90 within 1 mm and its vertex count within
+    1%."""
+    from coxgraph_tpu_torch.eval import demos
+
+    root = os.path.join(FIXTURES, "tum_tiny")
+    got = demos.tum_pipeline(root, gpu)
+    want = demos.tum_pipeline(root, torch.device("cpu"))
+    assert got["ok"] and want["ok"]
+    assert got["submaps"] == want["submaps"] >= 2
+    np.testing.assert_allclose(got["stamps"], want["stamps"], atol=1e-6,
+                               rtol=0)
+    np.testing.assert_allclose(got["poses"], want["poses"], atol=1e-6,
+                               rtol=0)
+    assert abs(got["surf_q90"] - want["surf_q90"]) < 1e-3
+    assert abs(got["vertices"] - want["vertices"]) <= 0.01 * want["vertices"]
+
+
+@pytest.mark.cuda
+def test_kernel_matches_twin_on_real_depth_with_holes(gpu):
+    """K1 ≡ its twin on two tum_real frames whose depth has dropout and
+    speckle holes, at the drift tests' mapper (1,024 blocks of 8³, 512
+    lanes), fresh pools then pools with weight."""
+    from coxgraph_tpu_torch.eval import demos
+
+    cfg = demos.tum_real_config()[0]
+    spec, icfg, intr = cfg.spec, cfg.integrator, cfg.intrinsics
+    k = torch.zeros((), dtype=torch.int32, device=gpu)
+    lk, lt = _stacked(spec, gpu), _stacked(spec, gpu)
+    for index in (0, 60):
+        (depth, color, T), holes = _real_frame(index, gpu)
+        assert holes > 0.001, holes
+        sk, mk = tsdf._alloc_pass(spec, icfg, intr, lk, k, depth, T)
+        st, mt = tsdf._alloc_pass(spec, icfg, intr, lt, k, depth, T)
+        assert torch.equal(sk, st) and torch.equal(mk, mt)
+        args = (k, sk, mk, depth, color.permute(2, 0, 1).contiguous(),
+                geo.inverse(T).contiguous())
+        before = cuda_tsdf.LAUNCHES
+        cuda_tsdf.update_blocks(spec, icfg, intr, lk, *args)
+        assert cuda_tsdf.LAUNCHES == before + 1
+        cuda_tsdf.update_blocks_reference(spec, icfg, intr, lt, *args)
+        torch.cuda.synchronize()
+        assert int((lt.weight > 0).sum()) > 10_000
+        for f_ in dataclasses.fields(lk):
+            assert torch.equal(getattr(lk, f_.name),
+                               getattr(lt, f_.name)), f_.name
+
+
+@pytest.mark.cuda
+def test_hamming_kernel_matches_plain_on_real_descriptors(gpu):
+    """K2 ≡ its plain version on every output at the tum_real detector's
+    launches: 4 real keyframes' descriptors (K = 512) in a
+    ``match_chunk``-slot chunk (128), one query per scoring launch, and
+    the verify launch (b per query)."""
+    from coxgraph_tpu_torch.eval import demos
+
+    cfg, det_cfg, _ = demos.tum_real_config()
+    kps = [ft.detect_and_describe(cfg.intrinsics, c, d, det_cfg.features)
+           for (d, c, _), _ in (_real_frame(i, gpu) for i in (0, 40, 80,
+                                                             120))]
+    slots, K = det_cfg.match_chunk, det_cfg.features.max_keypoints
+    desc = torch.zeros((slots, K, 8), dtype=torch.int32, device=gpu)
+    valid = torch.zeros((slots, K), dtype=torch.bool, device=gpu)
+    for s, kp in enumerate(kps):
+        desc[s], valid[s] = kp.desc, kp.valid
+    assert int(valid.sum()) > 100
+    cases = [(kp.desc[None], kp.valid[None], desc[None], valid[None])
+             for kp in kps]
+    cases.append((desc[:3], valid[:3], desc[1:4, None].contiguous(),
+                  valid[1:4, None].contiguous()))
+    for a, av, b, bv in cases:
+        before = cuda_hamming.LAUNCHES
+        got = cuda_hamming.match_topk(a, av, b, bv, 10_000, 10_000)
+        assert cuda_hamming.LAUNCHES == before + 1
+        want = cuda_hamming.match_topk_reference(a, av, b, bv, 10_000,
+                                                 10_000)
+        for g_, w, name in zip(got, want, ("d1", "i1", "d2", "best_a")):
+            assert torch.equal(g_, w), name

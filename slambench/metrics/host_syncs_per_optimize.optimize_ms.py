@@ -1,0 +1,11 @@
+"""Host syncs per CoxgraphServer.optimize, counted under CUDA's sync
+debug mode."""
+
+MOVES = "optimize_ms"
+UNIT = "syncs"
+
+
+def read(rec):
+    if not rec.get("sync_optimizes"):
+        return None
+    return rec["syncs"] / rec["sync_optimizes"]

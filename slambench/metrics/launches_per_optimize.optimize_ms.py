@@ -1,0 +1,10 @@
+"""Kernel launches per CoxgraphServer.optimize in the profiled stretch."""
+
+MOVES = "optimize_ms"
+UNIT = "launches"
+
+
+def read(rec):
+    if not rec.get("optimizes"):
+        return None
+    return rec["launches"] / rec["optimizes"]

@@ -475,23 +475,25 @@ class HostMapper:
         landed by now) and warn on new drops."""
         if self._pending_stats is None:
             return
-        host, event = self._pending_stats
-        self._pending_stats = None
-        if event is not None:
-            event.synchronize()
-        self._warn_overflow(int(host[0]), int(host[1]))
+        with runtime.span("mapper.stats"):
+            host, event = self._pending_stats
+            self._pending_stats = None
+            if event is not None:
+                event.synchronize()
+            self._warn_overflow(int(host[0]), int(host[1]))
 
     def _schedule_stats_check(self) -> None:
-        pair = torch.stack([self.state.union_watermark,
-                            self.state.dropped_union_blocks])
-        if pair.is_cuda:
-            host = torch.empty(2, dtype=pair.dtype, pin_memory=True)
-            host.copy_(pair, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            host, event = pair.clone(), None
-        self._pending_stats = (host, event)
+        with runtime.span("mapper.stats"):
+            pair = torch.stack([self.state.union_watermark,
+                                self.state.dropped_union_blocks])
+            if pair.is_cuda:
+                host = torch.empty(2, dtype=pair.dtype, pin_memory=True)
+                host.copy_(pair, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+            else:
+                host, event = pair.clone(), None
+            self._pending_stats = (host, event)
 
     def union_saturation(self) -> Tuple[int, int]:
         """Host readback of (union_watermark, dropped_union_blocks); warns
@@ -523,7 +525,8 @@ class HostMapper:
         self.last_start = t
         if self._rollover_sat(stacklevel=4):
             return False
-        start_submap(self.cfg, self.state, T_dev, t_dev)
+        with runtime.span("mapper.start_submap"):
+            start_submap(self.cfg, self.state, T_dev, t_dev)
         self.n_submaps += 1
         self._mirror_start(T_odom, t)
         return True
@@ -533,15 +536,21 @@ class HostMapper:
         frame. Returns whether a submap was started."""
         if not self.mapping_enabled:
             return False
-        self._consume_pending_stats()
-        T_dev = self._tensor(T_odom_cam)
-        t_dev = torch.full((), t, dtype=torch.float32, device=self.device)
-        started = self._maybe_roll(T_odom_cam, T_dev, t, t_dev)
-        integrate(self.cfg, self.state, self._tensor(depth),
-                  None if color is None else self._tensor(color), T_dev,
-                  t_dev)
-        self._mirror_frame(T_odom_cam, t)
-        self._touched_submaps.add(max(self.n_submaps - 1, 0))
+        with runtime.span("mapper.step"):
+            self._consume_pending_stats()
+            with runtime.span("mapper.upload"):
+                T_dev = self._tensor(T_odom_cam)
+                t_dev = torch.full((), t, dtype=torch.float32,
+                                   device=self.device)
+                depth = self._tensor(depth)
+                color = None if color is None else self._tensor(color)
+            started = self._maybe_roll(T_odom_cam, T_dev, t, t_dev)
+            integrate(self.cfg, self.state, depth, color, T_dev, t_dev)
+            with runtime.span("mapper.mirror"):
+                self._mirror_frame(T_odom_cam, t)
+            self._touched_submaps.add(max(self.n_submaps - 1, 0))
+        runtime.count("mapper.frames")
+        runtime.count("mapper.rollovers", int(started))
         return started
 
     def step_points(self, points, colors, valid, T_odom_sensor,
@@ -573,62 +582,74 @@ class HostMapper:
         step() calls. Returns the number of submaps started."""
         if not self.mapping_enabled:
             return 0
-        self._consume_pending_stats()   # previous window's counters
-        # poses for the mirror — host arrays only (a device input
-        # disables the mirror rather than paying a readback per window)
-        T_host = (self._mirror_host_pose(T_odom_cams)
-                  if self.mirror_enabled else None)
-        # rollover bookkeeping in FLOAT64: an f32 downcast loses ~4 µs of
-        # resolution per minute of mission time, so `t - last_start >=
-        # interval - 1e-6` would start failing at exact window boundaries
-        # and fire a rollover one frame late; the device still gets f32
-        ts = np.asarray(ts, np.float64)
-        F = len(ts)
-        starts = []          # frame indices where a rollover fires
-        last = self.last_start
-        n = self.n_submaps
-        for i in range(F):
-            if n == 0 or ts[i] - last >= self.cfg.submap_interval - 1e-6:
-                last = float(ts[i])
-                if not self._rollover_sat(n):   # saturated: warn+count,
-                    starts.append(i)            # frames go to the last
-                    n += 1                      # submap
-        segments = []        # (rollover frame or None, lo, hi)
-        if not starts or starts[0] > 0:
-            segments.append((None, 0, starts[0] if starts else F))
-        bounds = starts + [F]
-        for b, e in zip(bounds[:-1], bounds[1:]):
-            segments.append((b, b, e))
+        with runtime.span("mapper.step_batch"):
+            self._consume_pending_stats()   # previous window's counters
+            with runtime.span("mapper.rollover_plan"):
+                # poses for the mirror — host arrays only (a device input
+                # disables the mirror rather than paying a readback per
+                # window)
+                T_host = (self._mirror_host_pose(T_odom_cams)
+                          if self.mirror_enabled else None)
+                # rollover bookkeeping in FLOAT64: an f32 downcast loses
+                # ~4 µs of resolution per minute of mission time, so `t -
+                # last_start >= interval - 1e-6` would start failing at
+                # exact window boundaries and fire a rollover one frame
+                # late; the device still gets f32
+                ts = np.asarray(ts, np.float64)
+                F = len(ts)
+                starts = []          # frame indices where a rollover fires
+                last = self.last_start
+                n = self.n_submaps
+                interval = self.cfg.submap_interval - 1e-6
+                for i in range(F):
+                    if n == 0 or ts[i] - last >= interval:
+                        last = float(ts[i])
+                        # saturated: warn+count, frames go to the last
+                        # submap
+                        if not self._rollover_sat(n):
+                            starts.append(i)
+                            n += 1
+                segments = []        # (rollover frame or None, lo, hi)
+                if not starts or starts[0] > 0:
+                    segments.append((None, 0, starts[0] if starts else F))
+                bounds = starts + [F]
+                for b, e in zip(bounds[:-1], bounds[1:]):
+                    segments.append((b, b, e))
 
-        depths = self._tensor(depths)
-        colors = None if colors is None else self._tensor(colors)
-        T_dev = self._tensor(T_odom_cams)
-        ts_dev = self._tensor(ts)
-        for start_i, lo, hi in segments:
-            if start_i is not None:
-                start_submap(self.cfg, self.state, T_dev[start_i],
-                             ts_dev[start_i])
-                self.n_submaps = min(self.n_submaps + 1,
-                                     self.cfg.max_submaps)
-                self.last_start = float(ts[start_i])
-                if T_host is not None:
-                    self._mirror_start(T_host[start_i], float(ts[start_i]))
-            if hi > lo:
-                integrate_batch(self.cfg, self.state, depths[lo:hi],
-                                None if colors is None else colors[lo:hi],
-                                T_dev[lo:hi], ts_dev[lo:hi])
-                self._touched_submaps.add(max(self.n_submaps - 1, 0))
-                if T_host is not None:
-                    for i in range(lo, hi):
-                        self._mirror_frame(T_host[i], float(ts[i]))
-        # persist the interval clock even when the last rollover(s) were
-        # saturation-DROPPED, so _rollover_sat fires once per interval
-        self.last_start = last
-        self._windows_done += 1
-        if (self.stats_check_windows > 0
-                and self._windows_done % self.stats_check_windows == 0):
-            self._schedule_stats_check()
-        return len(starts)
+            with runtime.span("mapper.upload"):
+                depths = self._tensor(depths)
+                colors = None if colors is None else self._tensor(colors)
+                T_dev = self._tensor(T_odom_cams)
+                ts_dev = self._tensor(ts)
+            for start_i, lo, hi in segments:
+                if start_i is not None:
+                    with runtime.span("mapper.start_submap"):
+                        start_submap(self.cfg, self.state, T_dev[start_i],
+                                     ts_dev[start_i])
+                    self.n_submaps = min(self.n_submaps + 1,
+                                         self.cfg.max_submaps)
+                    self.last_start = float(ts[start_i])
+                    if T_host is not None:
+                        self._mirror_start(T_host[start_i], float(ts[start_i]))
+                if hi > lo:
+                    integrate_batch(self.cfg, self.state, depths[lo:hi],
+                                    None if colors is None else colors[lo:hi],
+                                    T_dev[lo:hi], ts_dev[lo:hi])
+                    self._touched_submaps.add(max(self.n_submaps - 1, 0))
+                    if T_host is not None:
+                        with runtime.span("mapper.mirror"):
+                            for i in range(lo, hi):
+                                self._mirror_frame(T_host[i], float(ts[i]))
+            # persist the interval clock even when the last rollover(s) were
+            # saturation-DROPPED, so _rollover_sat fires once per interval
+            self.last_start = last
+            self._windows_done += 1
+            if (self.stats_check_windows > 0
+                    and self._windows_done % self.stats_check_windows == 0):
+                self._schedule_stats_check()
+            runtime.count("mapper.frames", F)
+            runtime.count("mapper.rollovers", len(starts))
+            return len(starts)
 
     def finish_map(self, solver_cfg: Optional[pg.SolverConfig] = None
                    ) -> None:
@@ -688,11 +709,12 @@ class HostMapper:
             k = max(self.n_submaps - 1, 0)
         mesher = self.live_mesher(k, **kwargs)
         self._consume_pending_stats()
-        row, _ = consume_mesh_dirty(self.state, k)
-        if mesher.pending is not None:
-            row = row | mesher.pending
-        mesher.pending = row
-        layer = get_layer(self.state.collection.layers, k)
+        with runtime.span("serve.consume_dirty"):
+            row, _ = consume_mesh_dirty(self.state, k)
+            if mesher.pending is not None:
+                row = row | mesher.pending
+            mesher.pending = row
+            layer = get_layer(self.state.collection.layers, k)
         self._touched_submaps.discard(k)
 
         def finish():
@@ -751,10 +773,11 @@ def optimize_local(cfg: MapperConfig, state: MapperState,
     if solver_cfg is None:
         solver_cfg = cfg.local_solver or pg.SolverConfig()
     col = state.collection
-    res = pg.optimize(col.T_odom_submap, state.constraints, solver_cfg,
-                      heights=(state.heights
-                               if cfg.height_prior_stddev > 0 else None))
-    col.T_odom_submap.copy_(res.poses)
+    with runtime.span("mapper.optimize_local"):
+        res = pg.optimize(col.T_odom_submap, state.constraints, solver_cfg,
+                          heights=(state.heights
+                                   if cfg.height_prior_stddev > 0 else None))
+        col.T_odom_submap.copy_(res.poses)
     return state
 
 

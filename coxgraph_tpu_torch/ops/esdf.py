@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import runtime
 from ..core import voxel as vx
 
 Tensor = torch.Tensor
@@ -91,6 +92,12 @@ def esdf_from_tsdf(spec: vx.VoxelGridSpec, tsdf: vx.TsdfLayer,
                    cfg: EsdfConfig = EsdfConfig()) -> EsdfLayer:
     """Batch-build the ESDF over the TSDF's allocated blocks, on the
     layer's device, with no host read."""
+    with runtime.span("esdf.build"):
+        return _esdf_sweeps(spec, tsdf, cfg)
+
+
+def _esdf_sweeps(spec: vx.VoxelGridSpec, tsdf: vx.TsdfLayer,
+                 cfg: EsdfConfig) -> EsdfLayer:
     v = spec.voxels_per_side
     B = tsdf.max_blocks
     device = tsdf.sdf.device
@@ -153,6 +160,7 @@ def esdf_from_tsdf(spec: vx.VoxelGridSpec, tsdf: vx.TsdfLayer,
                             torch.maximum(d, neg_best))
         d_new = torch.where(band, init, d_new)        # band frozen
         d = torch.where(live, d_new, md)
+    runtime.count("esdf.sweeps", n_iters)
     dist = torch.clamp(d, -md, md)
     return EsdfLayer(dist=dist.reshape(B, -1),
                      observed=observed.reshape(B, -1),

@@ -17,6 +17,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import runtime
 from ..core import voxel as vx
 from . import mesh as mesh_ops
 
@@ -68,9 +69,10 @@ class IncrementalMesher:
         """Re-mesh the chunks invalidated by ``updated`` ((max_blocks,)
         bool on the layer's device, e.g. a consume_mesh_dirty row) against
         ``layer``. Returns the chunk ids re-meshed (empty = no change)."""
-        chunk_dirty = mesh_ops.dirty_block_chunks(
-            self.spec, layer, updated, self.chunk).cpu().numpy()
-        ids = [int(i) for i in np.nonzero(chunk_dirty)[0]]
+        with runtime.span("mesh.dirty_chunks"):
+            chunk_dirty = mesh_ops.dirty_block_chunks(
+                self.spec, layer, updated, self.chunk).cpu().numpy()
+            ids = [int(i) for i in np.nonzero(chunk_dirty)[0]]
         self.refresh_chunks(ids, layer)
         return ids
 
@@ -90,13 +92,14 @@ class IncrementalMesher:
                                     device=device)
         t_chunk = self.chunk * (self.spec.voxels_per_side ** 3) * 12
         for _ in range(12):   # bounded; every retry strictly grows capacity
-            verts, cols, offs, cnts, totals = \
-                mesh_ops.extract_mesh_chunks_device(
-                    self.spec, layer, self.chunk, self.min_weight,
-                    self.max_tris, chunk_ids, cap_mult=self.cap_mult)
-            # one readback for the three small per-chunk tables
-            offs_h, cnts_h, totals_h = torch.stack(
-                [offs, cnts, totals]).cpu().numpy().astype(np.int64)
+            with runtime.span("mesh.extract"):
+                verts, cols, offs, cnts, totals = \
+                    mesh_ops.extract_mesh_chunks_device(
+                        self.spec, layer, self.chunk, self.min_weight,
+                        self.max_tris, chunk_ids, cap_mult=self.cap_mult)
+                # one readback for the three small per-chunk tables
+                offs_h, cnts_h, totals_h = torch.stack(
+                    [offs, cnts, totals]).cpu().numpy().astype(np.int64)
             # true buffer end = max over chunks (the last chunk may be
             # empty, and on overflow the clamped offset parks at max_tris)
             used = int((offs_h + cnts_h).max())
@@ -106,6 +109,7 @@ class IncrementalMesher:
                 self.max_tris = 1 << max(int(totals_h.sum()) - 1,
                                          1).bit_length()
                 self.buffer_growths += 1
+                runtime.count("mesh.retries")
                 continue
             if int(np.maximum(totals_h - cnts_h, 0).max()) > 0 \
                     and self.cap_mult < 16:
@@ -114,6 +118,7 @@ class IncrementalMesher:
                 self.cap_mult = min(16, _next_pow2(
                     max(need, 2 * self.cap_mult)))
                 self.capacity_growths += 1
+                runtime.count("mesh.retries")
                 continue
             break
         dropped = int(np.maximum(totals_h - cnts_h, 0).sum())
@@ -123,23 +128,27 @@ class IncrementalMesher:
                 f"incremental mesh update dropped {dropped} triangles at "
                 "maximum per-chunk capacity", RuntimeWarning, stacklevel=3)
         if used:
-            if self.quantize:
-                qv, qc, mn, scale = mesh_ops.quantize_mesh_device(
-                    self.spec, layer, verts, cols)
-                vflat, cflat = mesh_ops.host_triangles(
-                    qv, qc, used, mesh_ops.host_quant(mn, scale))
-            else:
-                vflat, cflat = mesh_ops.host_triangles(verts, cols, used)
-        for i, cid in enumerate(ids):
-            n = int(cnts_h[i])
-            if n == 0:
-                self._cache.pop(cid, None)
-                continue
-            o = int(offs_h[i])
-            self._cache[cid] = (vflat[o:o + n].copy(),
-                                cflat[o:o + n].copy())
+            with runtime.span("mesh.host_triangles"):
+                if self.quantize:
+                    qv, qc, mn, scale = mesh_ops.quantize_mesh_device(
+                        self.spec, layer, verts, cols)
+                    vflat, cflat = mesh_ops.host_triangles(
+                        qv, qc, used, mesh_ops.host_quant(mn, scale))
+                else:
+                    vflat, cflat = mesh_ops.host_triangles(verts, cols,
+                                                           used)
+        with runtime.span("mesh.cache"):
+            for i, cid in enumerate(ids):
+                n = int(cnts_h[i])
+                if n == 0:
+                    self._cache.pop(cid, None)
+                    continue
+                o = int(offs_h[i])
+                self._cache[cid] = (vflat[o:o + n].copy(),
+                                    cflat[o:o + n].copy())
         self.n_updates += 1
         self.chunks_remeshed += len(ids)
+        runtime.count("mesh.chunks_remeshed", len(ids))
 
     def full_rebuild(self, layer: vx.TsdfLayer) -> None:
         """Rebuild every chunk's cache, sized off ``layer.max_blocks`` (a

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from .. import runtime
 from ..core import geometry as geo
 from ..core import voxel as vx
 from ..frontends.synthetic import PinholeIntrinsics
@@ -254,13 +255,15 @@ def integrate_window_stacked_impl(spec: vx.VoxelGridSpec,
         colors = colors.to(torch.float32).contiguous()
     touched = torch.zeros((mb + 1,), dtype=torch.bool, device=device)
     for f in range(depths.shape[0]):
-        slots, mask = _alloc_pass(spec, cfg, intr, layers, k, depths[f],
-                                  T_sm_cams[f])
+        with runtime.span("tsdf.alloc"):
+            slots, mask = _alloc_pass(spec, cfg, intr, layers, k, depths[f],
+                                      T_sm_cams[f])
         _mark_touched(touched, slots, mask)
-        cuda_tsdf.update_blocks(
-            spec, cfg, intr, layers, k, slots, mask, depths[f],
-            None if colors is None else colors[f],
-            geo.inverse(T_sm_cams[f]))
+        with runtime.span("tsdf.update_blocks"):
+            cuda_tsdf.update_blocks(
+                spec, cfg, intr, layers, k, slots, mask, depths[f],
+                None if colors is None else colors[f],
+                geo.inverse(T_sm_cams[f]))
     if not return_stats:
         return layers
     touched = touched[:mb]

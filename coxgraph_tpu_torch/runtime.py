@@ -5,6 +5,15 @@ when no card is visible instead of quietly running on the CPU.
 ``ResourceSampler`` samples this process's CPU share and memory (the
 fusion server's ``state_query`` carries one sample). ``Timers`` sums
 scoped wall-clock times by name.
+
+Program tracing: ``span(name)`` marks a stretch of the port's host code
+and ``count(name, n)`` adds to a host-side counter. Both do nothing
+until ``tracing(True)``; then a span opens a ``record_function`` range
+``"cox." + name`` (which a ``torch.profiler`` trace places on the clock
+of the card's kernels and copies) and adds its host wall time to one
+process-wide ``Timers``, and ``snapshot()`` returns what was summed. A
+span never fences the card, and a counter only adds values the host
+already holds.
 """
 
 from __future__ import annotations
@@ -86,46 +95,10 @@ class ResourceSampler:
     """Process CPU and memory sampling (the reference's node_evaluator
     ["cpu", "mem"] modes, evaluation_config.yaml:1-2). Reads /proc;
     ``sample()`` returns the CPU share since the previous call and the
-    resident set. ``start(rate_hz)`` / ``stop()`` run the periodic loop;
-    ``summary()`` is the end-of-run rollup."""
+    resident set."""
 
     def __init__(self):
         self._last = None
-        self.samples = []
-        self._thread = None
-        self._stop = None
-
-    def start(self, rate_hz: float = 1.0) -> "ResourceSampler":
-        """Sample periodically on a daemon thread until stop()."""
-        if self._thread is not None:
-            return self
-        self._stop = threading.Event()
-        self.sample()                       # baseline for the first delta
-
-        def loop():
-            while not self._stop.wait(1.0 / rate_hz):
-                self.sample()
-
-        self._thread = threading.Thread(target=loop, daemon=True)
-        self._thread.start()
-        return self
-
-    def stop(self) -> dict:
-        if self._thread is not None:
-            self._stop.set()
-            self._thread.join()
-            self._thread = None
-        return self.summary()
-
-    def summary(self) -> dict:
-        if not self.samples:
-            return {"n": 0}
-        cpu = [s["cpu_pct"] for s in self.samples]
-        rss = [s["rss_mb"] for s in self.samples]
-        return {"n": len(self.samples),
-                "cpu_pct_mean": sum(cpu) / len(cpu),
-                "cpu_pct_max": max(cpu),
-                "rss_mb_max": max(rss)}
 
     @staticmethod
     def _read():
@@ -145,6 +118,78 @@ class ResourceSampler:
         dt = max(now[0] - self._last[0], 1e-9)
         cpu = 100.0 * (now[1] - self._last[1]) / dt
         self._last = now
-        rec = {"cpu_pct": cpu, "rss_mb": now[2] / 1e6}
-        self.samples.append(rec)
-        return rec
+        return {"cpu_pct": cpu, "rss_mb": now[2] / 1e6}
+
+
+# -- program tracing --------------------------------------------------------
+
+SPAN_PREFIX = "cox."
+_TRACING = False                 # set by tracing(), read by span() and count()
+_OFF = contextlib.nullcontext()  # the one span handed out while off
+_LOCK = threading.Lock()         # taken only while tracing is on
+_TIMERS = Timers()               # span name → host wall time and count
+_COUNTERS: Dict[str, int] = defaultdict(int)
+
+
+def tracing(on: bool) -> None:
+    """Switch program tracing (``span`` and ``count``) on or off for the
+    whole process. What was summed stays; ``snapshot`` reads it."""
+    global _TRACING
+    _TRACING = bool(on)
+
+
+class _Span:
+    __slots__ = ("name", "_rf", "_t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self._rf = torch.profiler.record_function(SPAN_PREFIX + self.name)
+        self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        dt = time.perf_counter() - self._t0
+        self._rf.__exit__(*exc)
+        with _LOCK:
+            _TIMERS.total[self.name] += dt
+            _TIMERS.count[self.name] += 1
+        return False
+
+
+def span(name: str):
+    """A context manager around one stretch of the port's host code. Off,
+    the shared no-op context; on, a ``record_function`` range
+    ``"cox." + name`` and the stretch's host wall time summed under
+    ``name``."""
+    if not _TRACING:
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` (a host value, never a tensor) to counter ``name`` while
+    tracing is on."""
+    if not _TRACING:
+        return
+    with _LOCK:
+        _COUNTERS[name] += n
+
+
+def snapshot() -> dict:
+    """What tracing has summed so far → ``{"spans": {name: {"n",
+    "total_s"}}, "counters": {name: value}}``; the counters include the
+    kernel launches ``k1.launches`` and ``k2.launches``
+    (``ops.cuda_tsdf.LAUNCHES``, ``ops.cuda_hamming.LAUNCHES``, counted
+    whether tracing is on or not). Difference two snapshots to read a
+    stretch."""
+    from .ops import cuda_hamming, cuda_tsdf
+
+    with _LOCK:
+        spans = json.loads(_TIMERS.as_json())
+        counters = dict(_COUNTERS)
+    counters["k1.launches"] = cuda_tsdf.LAUNCHES
+    counters["k2.launches"] = cuda_hamming.LAUNCHES
+    return {"spans": spans, "counters": counters}

@@ -25,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import runtime
 from ..core import geometry as geo
 from ..core import voxel as vx
 from ..ops import registration as reg
@@ -361,23 +362,26 @@ def optimize_two_phase(poses: Tensor,
     the layers' identities)."""
     n = poses.shape[0]
     device = poses.device
-    res1 = pg.optimize(poses, constraints, solver_cfg, fixed=fixed,
-                       heights=heights)
-    poses = res1.poses
-    # one read: the phase-1 poses (for the overlap test) and its cost
-    host = torch.cat([poses.reshape(-1), res1.cost.reshape(1)]).cpu()
+    with runtime.span("opt.phase1"):
+        res1 = pg.optimize(poses, constraints, solver_cfg, fixed=fixed,
+                           heights=heights)
+        poses = res1.poses
+        # one read: the phase-1 poses (for the overlap test) and its cost
+        host = torch.cat([poses.reshape(-1), res1.cost.reshape(1)]).cpu()
     info = {"phase1_cost": float(host[-1]), "n_registration_pairs": 0}
     if registration_weight == 0.0:
         # zero-weight registration contributes nothing to the solve
         return poses, info
 
-    pairs_idx = find_overlapping_pairs(
-        spec, layers, host[:-1].reshape(n, 7).numpy(),
-        skip_adjacent_same_client=skip_pairs, aabbs=submap_aabbs,
-        n_blocks=submap_blocks, max_pairs=max_pairs)
-    rpairs = make_registration_pairs(spec, layers, pairs_idx, reg_cfg,
-                                     caches=reg_caches)
+    with runtime.span("opt.pairs"):
+        pairs_idx = find_overlapping_pairs(
+            spec, layers, host[:-1].reshape(n, 7).numpy(),
+            skip_adjacent_same_client=skip_pairs, aabbs=submap_aabbs,
+            n_blocks=submap_blocks, max_pairs=max_pairs)
+        rpairs = make_registration_pairs(spec, layers, pairs_idx, reg_cfg,
+                                         caches=reg_caches)
     info["n_registration_pairs"] = len(rpairs)
+    runtime.count("opt.registration_pairs", len(rpairs))
     if not rpairs:
         return poses, info
 
@@ -395,7 +399,9 @@ def optimize_two_phase(poses: Tensor,
     if stack_cache is not None and stack_cache.get("key") == key:
         sdf_flat, w_flat, bi = stack_cache["fields"]
     else:
-        sdf_flat, w_flat, bi = _stack_fields(layers, R)
+        runtime.count("opt.stack_misses")
+        with runtime.span("opt.stack"):
+            sdf_flat, w_flat, bi = _stack_fields(layers, R)
         if stack_cache is not None:
             stack_cache["key"] = key
             stack_cache["fields"] = (sdf_flat, w_flat, bi)
@@ -414,20 +420,23 @@ def optimize_two_phase(poses: Tensor,
                      device=device)
     traces = []
     done = 0
-    while done < reg_iterations:
-        it = min(chunk, reg_iterations - done)
-        poses, lam, tr = _phase2_chunk(spec, poses, lam, constraints,
-                                       solver_cfg, it, fixed_all,
-                                       *field_args, heights=heights)
-        traces.append(tr)
-        done += it
-    final_cost = _phase2_final_cost(spec, poses, constraints, solver_cfg,
-                                    fixed_all, *field_args,
-                                    heights=heights)
-    relpose = pg._total_cost(poses, constraints, solver_cfg, heights)
-    # one read: the cost trace, the final cost and the relpose cost
-    tail = torch.cat(traces + [final_cost.reshape(1),
-                               relpose.reshape(1)]).cpu().tolist()
+    with runtime.span("opt.phase2"):
+        while done < reg_iterations:
+            it = min(chunk, reg_iterations - done)
+            poses, lam, tr = _phase2_chunk(spec, poses, lam, constraints,
+                                           solver_cfg, it, fixed_all,
+                                           *field_args, heights=heights)
+            traces.append(tr)
+            done += it
+    runtime.count("opt.phase2_iterations", done)
+    with runtime.span("opt.phase2_tail"):
+        final_cost = _phase2_final_cost(spec, poses, constraints,
+                                        solver_cfg, fixed_all, *field_args,
+                                        heights=heights)
+        relpose = pg._total_cost(poses, constraints, solver_cfg, heights)
+        # one read: the cost trace, the final cost and the relpose cost
+        tail = torch.cat(traces + [final_cost.reshape(1),
+                                   relpose.reshape(1)]).cpu().tolist()
     info["phase2_relpose_cost"] = tail[-1]
     info["phase2_cost_trace"] = tail[:-1]
     return poses, info

@@ -215,13 +215,9 @@ def test_resource_sampler():
     s = runtime.ResourceSampler()
     first = s.sample()
     assert first["cpu_pct"] == 0.0 and first["rss_mb"] > 1.0
-    assert s.sample()["cpu_pct"] >= 0.0
-    s.start(rate_hz=200.0)
-    import time
-    time.sleep(0.05)
-    out = s.stop()
-    assert out["n"] >= 2 and out["rss_mb_max"] > 1.0
-    assert set(out) == {"n", "cpu_pct_mean", "cpu_pct_max", "rss_mb_max"}
+    second = s.sample()
+    assert second["cpu_pct"] >= 0.0 and second["rss_mb"] > 1.0
+    assert set(second) == {"cpu_pct", "rss_mb"}
 
 
 # ---------------------------------------------------------------------------

@@ -29,17 +29,29 @@ no result line) if anything is wrong:
   3. kernel    — at the bench point (640×480, 5 cm, 16³ blocks), the kernel
                  vs its plain torch twin on the card, same inputs: integer
                  outputs equal; float pools bit-identical except at most
-                 1e-3 of the live voxels differing by more than 1e-5
+                 1e-3 of the live voxels differing by more than 1e-5; the
+                 allocation pass's two kernels on the kernel's pools and
+                 its plain version on the twin's: slots, slot_mask and
+                 block tables equal (torch.equal), as in every later
+                 "K1 ≡ its twin"
   4. main path — HostMapper(_mapper_config()).step_batch over the 30-frame
                  clip rendered on the card (4 submaps × 2048 blocks); one
-                 kernel launch per frame, no host sync; TSDF accuracy
+                 K1 launch and two allocation-kernel launches per frame,
+                 no host sync; TSDF accuracy
                  against the analytic scene (median |err| < voxel, q95 <
                  2.5 voxel); K1's live lanes per frame (min / median /
                  max), counted in a separate untimed allocation run
   5. state     — the stock MapperConfig (32 submaps × 8192 blocks × 16³,
                  21.5 GB of pools): 30 frames at 1 s with the 10 s submap
                  interval roll over at t = 0, 10, 20
-  6. times     — tsdf_benchmark frames/s; K1 alone at the bench frame:
+  6. times     — the allocation pass at client_vga's shapes (the stock
+                 MapperConfig: stride 4, 3 samples, 64³ grid, 8,192
+                 blocks, 2,048 lanes) over the 30-frame clip: its kernels
+                 ≡ its plain version on every frame (slots, mask, tables,
+                 touched bitmap), then both timed on a steady frame (back
+                 to back, profiled device time and launches, the kernels'
+                 CUDA-graph device time) beside the bytes' bound;
+                 tsdf_benchmark frames/s; K1 alone at the bench frame:
                  back to back through the wrapper (CUDA events) vs its
                  twin, and its device time from CUDA-graph replays, cold
                  (the calls cycle over ≥ 100 MB of distinct pool rows,
@@ -313,31 +325,52 @@ def _bound_ms(n_bytes: float, ops: float, ops_per_s: float):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def alloc_against_plain(spec, icfg, intr, lk, lt, k, depth, T, marks,
+                        touched=(None, None)):
+    """One frame through the allocation pass's two kernels on ``lk`` and
+    through its plain version on ``lt`` (same inputs) → the kernels'
+    (slots, slot_mask). Slots, slot_mask, the three block tables of every
+    submap and the ``touched`` bitmaps (kernels', plain's) must be equal
+    (torch.equal), and the kernels' scratch ``marks`` zero again."""
+    from coxgraph_tpu_torch.ops import cuda_alloc
+
+    sk, mk = cuda_alloc.alloc_pass(spec, icfg, intr, lk, k, depth, T,
+                                   touched[0], marks)
+    sp, mp = cuda_alloc.alloc_pass_reference(spec, icfg, intr, lt, k, depth,
+                                             T, touched[1])
+    assert torch.equal(sk, sp) and torch.equal(mk, mp), "slots differ"
+    for name in ("block_index", "block_coords", "num_blocks"):
+        assert torch.equal(getattr(lk, name), getattr(lt, name)), name
+    if touched[0] is not None:
+        assert torch.equal(touched[0][:-1], touched[1][:-1]), "touched"
+    assert int(marks.count_nonzero()) == 0, "scratch left marked"
+    return sk, mk
+
+
 def k1_against_twin(cfg, device, frames, tag: str, icfg=None):
     """K1 ≡ its plain twin on the same inputs: fresh pools of ``cfg``'s
     collection for each, every frame of ``frames`` ((k, depth, planar
-    colour (3,H,W), T_sm_cam)) through the allocation pass (slots and
-    block tables must agree), then the kernel and the twin on those
-    lanes; at most 1e-3 of the live voxels may differ by more than 1e-5
-    after each frame. ``icfg`` overrides ``cfg.integrator`` → (max_abs_err,
-    (kernel's pools, twin's pools, the last frame's update arguments))."""
+    colour (3,H,W), T_sm_cam)) through the allocation pass, its kernels
+    on the kernel's pools and its plain version on the twin's
+    (``alloc_against_plain``: slots and block tables equal), then the
+    kernel and the twin on those lanes; at most 1e-3 of the live voxels
+    may differ by more than 1e-5 after each frame. ``icfg`` overrides
+    ``cfg.integrator`` → (max_abs_err, (kernel's pools, twin's pools, the
+    last frame's update arguments))."""
     from coxgraph_tpu_torch.core import geometry as geo
     from coxgraph_tpu_torch.mapper import submap_mapper as sm
-    from coxgraph_tpu_torch.ops import cuda_tsdf
-    from coxgraph_tpu_torch.ops import tsdf as tsdf_ops
+    from coxgraph_tpu_torch.ops import cuda_alloc, cuda_tsdf
 
     spec, intr = cfg.spec, cfg.intrinsics
     icfg = cfg.integrator if icfg is None else icfg
     lk = sm.create_collection(cfg, device).layers   # kernel's pools
     lt = sm.create_collection(cfg, device).layers   # twin's pools
+    marks = cuda_alloc.new_marks(spec, device)
     max_err = 0.0
     for f, (k, depth, planar, T) in enumerate(frames):
         k = torch.full((), k, dtype=torch.int32, device=device)
-        sk, mk = tsdf_ops._alloc_pass(spec, icfg, intr, lk, k, depth, T)
-        st, mt = tsdf_ops._alloc_pass(spec, icfg, intr, lt, k, depth, T)
-        assert torch.equal(sk, st) and torch.equal(mk, mt), "slots differ"
-        for name in ("block_index", "block_coords", "num_blocks"):
-            assert torch.equal(getattr(lk, name), getattr(lt, name)), name
+        sk, mk = alloc_against_plain(spec, icfg, intr, lk, lt, k, depth, T,
+                                     marks)
         args = (k, sk, mk, depth, planar, geo.inverse(T))
         cuda_tsdf.update_blocks(spec, icfg, intr, lk, *args)
         cuda_tsdf.update_blocks_reference(spec, icfg, intr, lt, *args)
@@ -417,20 +450,108 @@ def k1_device_times(spec, icfg, intr, layers, args):
     return cold_ms, warm_ms, cycle_mb
 
 
+def alloc_pass_record(device, depths, traj, ident) -> dict:
+    """The allocation pass at client_vga's shapes (the stock MapperConfig:
+    640×480, stride 4, 3 band samples, a 64³ grid, 8,192 blocks, 2,048
+    lanes) over the bench clip into one submap: its two kernels ≡ its
+    plain version on every frame (``alloc_against_plain``, the window's
+    touched bitmaps too). Then on the clip's last frame, whose blocks are
+    allocated (a steady frame): each back to back (CUDA events), its
+    device time and launches a pass (torch.profiler over 10 passes) and
+    the kernels' device time from CUDA-graph replays; the bound is the
+    bytes this frame's pass must move at the HBM rate → the record of the
+    ``kernels`` line."""
+    from coxgraph_tpu_torch.core import geometry as geo
+    from coxgraph_tpu_torch.core import voxel as vx
+    from coxgraph_tpu_torch.mapper import submap_mapper as sm
+    from coxgraph_tpu_torch.ops import cuda_alloc
+
+    cfg = sm.MapperConfig()
+    spec, icfg, intr = cfg.spec, cfg.integrator, cfg.intrinsics
+    assert tuple(depths.shape[1:]) == (intr.height, intr.width)
+    g, mb = spec.grid_dim, spec.max_blocks
+    K = min(icfg.max_touched_blocks, mb)
+    k = torch.zeros((), dtype=torch.int32, device=device)
+    marks = cuda_alloc.new_marks(spec, device)
+    T_sm_cams = geo.relative(traj[0][None], traj)   # the submap of frame 0
+
+    def tables():           # the block tables alone (the pass's state)
+        empty = torch.empty((1, 0), device=device)
+        return vx.TsdfLayer(
+            sdf=empty, weight=empty, color=empty,
+            block_index=torch.full((1, g, g, g), -1, dtype=torch.int32,
+                                   device=device),
+            block_coords=torch.zeros((1, mb, 3), dtype=torch.int32,
+                                     device=device),
+            num_blocks=torch.zeros((1,), dtype=torch.int32, device=device))
+
+    lk, lp = tables(), tables()
+    touched = [torch.zeros(mb + 1, dtype=torch.bool, device=device)
+               for _ in range(2)]
+    n = depths.shape[0]
+    for f in range(n):
+        _, mask = alloc_against_plain(spec, icfg, intr, lk, lp, k,
+                                      depths[f], T_sm_cams[f], marks,
+                                      touched)
+    n_blocks = int(lk.num_blocks[0])
+    depth, T = depths[-1], T_sm_cams[-1]
+    runs = {
+        "kernels": lambda: cuda_alloc.alloc_pass(spec, icfg, intr, lk, k,
+                                                 depth, T, None, marks),
+        "plain": lambda: cuda_alloc.alloc_pass_reference(spec, icfg, intr,
+                                                         lp, k, depth, T),
+    }
+    rec = {}
+    for name, fn in runs.items():
+        _, dev_ms, launches, _, _, _ = profiled(
+            lambda fn=fn: [fn() for _ in range(10)])
+        rec[name] = (_time_ms(fn), dev_ms / 10, launches / 10)
+    graph_ms = _graph_ms(runs["kernels"])
+    assert int(lk.num_blocks[0]) == int(lp.num_blocks[0]) == n_blocks
+    assert torch.equal(lk.block_index, lp.block_index)
+    assert rec["kernels"][2] == 2, rec["kernels"]
+    n_live = int(mask.sum())
+    st = icfg.alloc_stride
+    hs, ws = -(-intr.height // st), -(-intr.width // st)
+    # read: the sampled depth, the pose, the live lanes' block_index
+    # entries; written: slots and slot_mask (a steady frame allocates
+    # nothing)
+    n_bytes = 4 * hs * ws + 4 * 7 + 4 * n_live + 5 * K
+    bound, by = _bound_ms(n_bytes, 0.0, 1.0)
+    print(f"[6] allocation pass at client_vga's shapes ({intr.width}x"
+          f"{intr.height}, stride {st}, {icfg.alloc_band_samples} samples, "
+          f"{g}^3 grid, {mb} blocks, {K} lanes): kernels ≡ plain on all {n}"
+          f" frames (slots, mask, tables, touched); the last frame ({n_live}"
+          f" live lanes, {n_blocks} blocks): kernels "
+          f"{rec['kernels'][0] * 1e3:.2f} us back to back, device "
+          f"{rec['kernels'][1] * 1e3:.2f} us profiled, "
+          f"{graph_ms * 1e3:.2f} us graph, {rec['kernels'][2]:g} launches;"
+          f" plain {rec['plain'][0] * 1e3:.1f} us back to back, device "
+          f"{rec['plain'][1] * 1e3:.1f} us, {rec['plain'][2]:g} launches; "
+          f"bound {bound * 1e3:.3f} us ({by}: {n_bytes} bytes) — {ident}")
+    return dict(ms=rec["kernels"][0], device_ms=graph_ms,
+                profiled_device_ms=rec["kernels"][1],
+                pass_launches=rec["kernels"][2], plain_ms=rec["plain"][0],
+                plain_device_ms=rec["plain"][1],
+                plain_launches=rec["plain"][2], bound_ms=bound,
+                bound_by=by, bound_bytes=n_bytes, live_lanes=n_live,
+                frames_equal=n)
+
+
 def phase_main_path(cfg, device, depths, colors, traj):
-    """Phase 4 → launches of the main path."""
+    """Phase 4 → launches of the main path (K1's, the allocation
+    kernels')."""
     from coxgraph_tpu_torch.core import geometry as geo
     from coxgraph_tpu_torch.core import voxel as vx
     from coxgraph_tpu_torch.frontends import synthetic as syn
     from coxgraph_tpu_torch.mapper import submap_mapper as sm
-    from coxgraph_tpu_torch.ops import cuda_tsdf
-    from coxgraph_tpu_torch.ops import tsdf as tsdf_ops
+    from coxgraph_tpu_torch.ops import cuda_alloc, cuda_tsdf
 
     n = depths.shape[0]
     hm = sm.HostMapper(cfg, device=device)
     ts = np.arange(n, dtype=np.float64) * 0.05
     torch.cuda.synchronize()
-    cuda_tsdf.LAUNCHES = 0
+    cuda_tsdf.LAUNCHES = cuda_alloc.LAUNCHES = 0
     t0 = time.perf_counter()
     # no device→host sync may happen on the per-frame path
     torch.cuda.set_sync_debug_mode("error")
@@ -450,8 +571,10 @@ def phase_main_path(cfg, device, depths, colors, traj):
           f"submaps started {started}, launches {launches}, num_blocks "
           f"{nb.tolist()}, weight checksum {checksum:.6g}, mesh_dirty[0] "
           f"{dirty}, union_watermark {int(st.union_watermark)}")
+    alloc_launches = cuda_alloc.LAUNCHES
     assert started == 1 and hm.n_submaps == 1
     assert launches == n, launches
+    assert alloc_launches == 2 * n, alloc_launches
     assert nb[0] > 0 and np.isfinite(checksum) and checksum > 0
     assert dirty > 0 and int(st.frame_count) == n
 
@@ -461,8 +584,10 @@ def phase_main_path(cfg, device, depths, colors, traj):
     fresh = sm.create_collection(cfg, device).layers
     k = torch.zeros((), dtype=torch.int32, device=device)
     T_sm_cams = geo.relative(traj[0][None], traj)   # the submap of frame 0
-    lanes = [int(tsdf_ops._alloc_pass(spec, icfg, cfg.intrinsics, fresh, k,
-                                      depths[f], T_sm_cams[f])[1].sum())
+    marks = cuda_alloc.new_marks(spec, device)
+    lanes = [int(cuda_alloc.alloc_pass(spec, icfg, cfg.intrinsics, fresh,
+                                       k, depths[f], T_sm_cams[f], None,
+                                       marks)[1].sum())
              for f in range(n)]
     print(f"[4] K1's live lanes per frame of the {n}: min {min(lanes)}, "
           f"median {int(np.median(lanes))}, max {max(lanes)} (of "
@@ -486,7 +611,7 @@ def phase_main_path(cfg, device, depths, colors, traj):
           f"|err| {med:.4f} m, q95 {q95:.4f} m (voxel {spec.voxel_size})")
     assert int(near.sum()) > 1000
     assert med < spec.voxel_size and q95 < 2.5 * spec.voxel_size
-    return launches
+    return launches, alloc_launches
 
 
 def phase_state_size(device, depths, colors, traj):
@@ -2398,8 +2523,13 @@ def main() -> None:
     del lk, lt, args
     torch.cuda.empty_cache()
 
+    # ---- 6a. the allocation pass alone at client_vga's shapes -----------
+    alloc = alloc_pass_record(device, depths, traj, ident)
+    torch.cuda.empty_cache()
+
     # ---- 4. main path ----------------------------------------------------
-    launches = phase_main_path(cfg, device, depths, colors, traj)
+    launches, alloc_launches = phase_main_path(cfg, device, depths, colors,
+                                               traj)
     torch.cuda.empty_cache()
 
     # ---- 5. real state size --------------------------------------------
@@ -2502,6 +2632,15 @@ def main() -> None:
         "replay_plain_ms": k2_replay["plain_ms"],
         "replay_bound_ms": k2_replay["bound_ms"],
         "replay_bound_by": k2_replay["bound_by"],
+    }, {
+        "name": "tsdf_alloc",
+        "route": "cuda",
+        "source": "coxgraph_tpu_torch/csrc/tsdf_alloc.cu",
+        "replaces": None,   # no TPU kernel: the JAX package's pass is XLA
+        "launches": alloc_launches,
+        "max_abs_err": 0,
+        "library_ms": None,
+        **alloc,
     }]}))
     print(ident)
     print(json.dumps({"ok": True, "device": {

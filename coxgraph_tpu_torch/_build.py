@@ -28,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libcoxgraph_tpu_torch.so")
 LOG_PATH = os.path.join(BUILD_DIR, "build.log")
-SOURCES = ("tsdf_update.cu", "hamming_match.cu")
+SOURCES = ("tsdf_update.cu", "hamming_match.cu", "tsdf_alloc.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false",
                               "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -133,6 +133,15 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "cox_hamming_topk": (
             [P] * 8       # a, a_valid, b, b_valid, d1, i1, d2, best_a
             + [I] * 7     # n_q, cap, ka, kb, b_batched, big, excl
+            + [P],        # stream
+            I),
+        "cox_tsdf_alloc": (
+            [P] * 3       # depth, T, marks
+            + [ctypes.c_int64]   # the bytes of marks
+            + [P] * 7     # index, coords, num_blocks, k, slots, mask,
+                          # touched
+            + [I] * 8     # height, width, stride, band, gd, mb, vps, lanes
+            + [F] * 10    # band lo hi step, cx cy 1/fx 1/fy min max 1/vs
             + [P],        # stream
             I),
         "cox_error_string": ([I], ctypes.c_char_p),

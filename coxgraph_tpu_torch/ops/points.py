@@ -44,8 +44,7 @@ import torch
 from ..core import geometry as geo
 from ..core import voxel as vx
 from ..frontends.synthetic import PinholeIntrinsics
-from ..utils.tensorops import f32_reciprocal, put_rows
-from .tsdf import _linspace
+from ..utils.tensorops import f32_reciprocal, linspace, put_rows
 
 Tensor = torch.Tensor
 
@@ -193,11 +192,11 @@ def integrate_points_stacked_impl(
 
     # ---- static sample offsets along each ray ------------------------
     Sb, Sc = cfg.band_samples, cfg.carve_samples
-    d_all = dist[None, :] + _linspace(-tau, tau, Sb, device)[:, None]
+    d_all = dist[None, :] + linspace(-tau, tau, Sb, device)[:, None]
     carve_row = torch.zeros((Sb, 1), dtype=torch.bool, device=device)
     if Sc:
         # carve: min_range → dist − τ, per-ray stride (coarse free space)
-        frac = _linspace(0.0, 1.0, Sc + 1, device)[:-1][:, None]
+        frac = linspace(0.0, 1.0, Sc + 1, device)[:-1][:, None]
         d_carve = cfg.min_range + frac * torch.clamp(
             dist[None, :] - tau - cfg.min_range, min=0.0)
         d_all = torch.cat([d_all, d_carve])                # (Ss, N)

@@ -18,6 +18,9 @@ the mask back to the host. These helpers keep every write on the device:
 ``check_operand`` is the kernel wrappers' check of a tensor before its
 pointer goes to CUDA.
 
+``decimate`` and ``linspace`` are the JAX package's strided decimation
+and ``jnp.linspace`` in the same f32 arithmetic.
+
 ``f32_reciprocal`` serves division by a constant: XLA rewrites ``x / c``
 into ``x * (1/c)`` with the reciprocal rounded to f32, and torch does the
 same on CUDA but divides exactly on the CPU. Writing the multiply out
@@ -37,6 +40,34 @@ Tensor = torch.Tensor
 def f32_reciprocal(c: float) -> float:
     """1/c rounded to f32 (exactly representable as the Python float)."""
     return float(np.float32(1.0) / np.float32(c))
+
+
+def decimate(img: Tensor, st: int) -> Tensor:
+    """Top-left stride-``st`` decimation of the last two dims (zero-padded
+    to a multiple of ``st`` first, as the reference's reshape form)."""
+    if st == 1:
+        return img
+    H, W = img.shape[-2:]
+    ph, pw = (-H) % st, (-W) % st
+    if ph or pw:
+        img = torch.nn.functional.pad(img, (0, pw, 0, ph))
+    s = tuple(img.shape[:-2])
+    img = img.reshape(s + ((H + ph) // st, st, (W + pw) // st, st))
+    return img[..., :, 0, :, 0]
+
+
+def linspace(start: float, stop: float, num: int, device) -> Tensor:
+    """jnp.linspace(start, stop, num) in its own f32 arithmetic
+    (start·(1-s) + stop·s, s = iota·(1/div), with the stop appended), so
+    the samples are the reference's to the bit."""
+    if num == 1:
+        return torch.full((1,), start, dtype=torch.float32, device=device)
+    div = num - 1
+    step = torch.arange(div, dtype=torch.float32,
+                        device=device) * f32_reciprocal(div)
+    lo = torch.full((1,), start, dtype=torch.float32, device=device)
+    hi = torch.full((1,), stop, dtype=torch.float32, device=device)
+    return torch.cat([lo * (1 - step) + hi * step, hi])
 
 
 def check_operand(name: str, t: Tensor, dtype, shape, device,

@@ -25,7 +25,7 @@ from coxgraph_tpu_torch.core import voxel as vx
 from coxgraph_tpu_torch.frontends import loop_detector as ld
 from coxgraph_tpu_torch.frontends import synthetic as syn
 from coxgraph_tpu_torch.mapper import submap_mapper as sm
-from coxgraph_tpu_torch.ops import cuda_hamming
+from coxgraph_tpu_torch.ops import cuda_alloc, cuda_hamming
 from coxgraph_tpu_torch.ops import cuda_tsdf
 from coxgraph_tpu_torch.ops import features as ft
 from coxgraph_tpu_torch.ops import tsdf
@@ -72,11 +72,12 @@ def test_kernel_matches_twin(gpu, vps):
     planar = colors.permute(0, 3, 1, 2).contiguous()
     k = torch.zeros((), dtype=torch.int32, device=gpu)
     lk, lt = _stacked(spec, gpu), _stacked(spec, gpu)
+    marks = cuda_alloc.new_marks(spec, gpu)
     for f in range(2):
-        sk, mk = tsdf._alloc_pass(spec, CFG, INTR, lk, k, depths[f],
-                                  traj[f])
-        st, mt = tsdf._alloc_pass(spec, CFG, INTR, lt, k, depths[f],
-                                  traj[f])
+        sk, mk = cuda_alloc.alloc_pass(spec, CFG, INTR, lk, k, depths[f],
+                                       traj[f], None, marks)
+        st, mt = cuda_alloc.alloc_pass_reference(spec, CFG, INTR, lt, k,
+                                                 depths[f], traj[f])
         assert torch.equal(sk, st) and torch.equal(mk, mt)
         args = (k, sk, mk, depths[f], planar[f],
                 geo.inverse(traj[f]).contiguous())
@@ -109,7 +110,8 @@ def test_kernel_edge_lanes_match_twin(gpu, vps):
     base = vx.TsdfLayer(**{f.name: torch.stack([getattr(one, f.name)] * 3)
                            for f in dataclasses.fields(one)})
     k = torch.full((), kk, dtype=torch.int32, device=gpu)
-    tsdf._alloc_pass(spec, cfg, INTR, base, k, depths[0], traj[0])
+    cuda_alloc.alloc_pass(spec, cfg, INTR, base, k, depths[0], traj[0],
+                          None, cuda_alloc.new_marks(spec, gpu))
     n_alloc = int(base.num_blocks[kk])
     assert n_alloc > 0
     g = torch.Generator(device=gpu).manual_seed(vps)
@@ -237,6 +239,200 @@ def test_step_batch_on_gpu_matches_cpu(gpu):
         d = (getattr(out["cuda"].collection.layers, name).cpu()
              - getattr(out["cpu"].collection.layers, name)).abs()
         assert float((d > 1e-4).float().mean()) < 1e-3, name
+
+
+def _tables(spec, S, device):
+    """A stacked collection of S submaps with only the block tables the
+    allocation pass reads and writes (empty pools)."""
+    g, mb = spec.grid_dim, spec.max_blocks
+    empty = torch.empty((S, 0), device=device)
+    return vx.TsdfLayer(
+        sdf=empty, weight=empty, color=empty,
+        block_index=torch.full((S, g, g, g), -1, dtype=torch.int32,
+                               device=device),
+        block_coords=torch.zeros((S, mb, 3), dtype=torch.int32,
+                                 device=device),
+        num_blocks=torch.zeros((S,), dtype=torch.int32, device=device))
+
+
+def _alloc_kernels_vs_plain(spec, cfg, intr, layers, k, frames, fill=None):
+    """Each (depth, T_sm_cam) of ``frames`` through the two kernels on
+    ``layers`` and through the plain version on a copy, in turn. After
+    every frame: slots, slot_mask, every submap's tables and the touched
+    bitmaps equal (torch.equal), the kernels' scratch zero again and 2
+    launches counted. ``fill`` = (frame, n): before that frame both pools
+    are set to within n slots of max_blocks → unique cells per frame."""
+    mb = spec.max_blocks
+    plain = vx.TsdfLayer(**{f.name: getattr(layers, f.name).clone()
+                            for f in dataclasses.fields(layers)})
+    dev = layers.block_index.device
+    touched = [torch.zeros(mb + 1, dtype=torch.bool, device=dev)
+               for _ in range(2)]
+    marks = cuda_alloc.new_marks(spec, dev)
+    unique = []
+    for f, (depth, T) in enumerate(frames):
+        if fill is not None and f == fill[0]:
+            for lay in (layers, plain):
+                lay.num_blocks[k.long()] = mb - fill[1]
+        cells, valid = cuda_alloc.alloc_candidates_reference(
+            spec, cfg, intr, depth, T)
+        unique.append(int(torch.unique(cells[valid]).numel()))
+        before = cuda_alloc.LAUNCHES
+        sk, mk = cuda_alloc.alloc_pass(spec, cfg, intr, layers, k, depth, T,
+                                       touched[0], marks)
+        assert cuda_alloc.LAUNCHES == before + 2
+        sp, mp = cuda_alloc.alloc_pass_reference(spec, cfg, intr, plain, k,
+                                                 depth, T, touched[1])
+        torch.cuda.synchronize()
+        assert torch.equal(sk, sp) and torch.equal(mk, mp), f
+        for name in ("block_index", "block_coords", "num_blocks"):
+            assert torch.equal(getattr(layers, name),
+                               getattr(plain, name)), (f, name)
+        assert torch.equal(touched[0][:mb], touched[1][:mb]), f
+        assert int(marks.count_nonzero()) == 0, f
+    return unique
+
+
+def _orbit(device, intr, n, radius=2.5):
+    scene = syn.default_scene(device)
+    traj = syn.orbit_trajectory(n, scene.room_center, radius=radius,
+                                sweep=0.3 * np.pi)
+    return [(syn.render_depth(scene, intr, traj[i])[0], traj[i])
+            for i in range(n)]
+
+
+def _edge_depth(depth):
+    """Holes (0, NaN, inf, beyond max range) and pixels so near that the
+    band's first samples lie behind the camera."""
+    d = depth.clone()
+    d[:8, :16] = 0.0
+    d[8:12, :16] = float("nan")
+    d[12:16, :16] = float("inf")
+    d[16:20, :16] = 11.0
+    d[20:28, 16:40] = 0.15
+    return d
+
+
+ALLOC_CASES = {
+    # (intrinsics scale, grid_dim, max_blocks, max_touched, S, k)
+    "80x60_g16": (0.125, 16, 256, 64, 1, 0),
+    "80x60_g64": (0.125, 64, 2048, 512, 1, 0),
+    "k_cap": (0.125, 16, 256, 12, 1, 0),
+    "near_full": (0.125, 16, 256, 64, 1, 0),
+    "edges": (0.125, 8, 256, 64, 1, 0),
+    "k2_of_3": (0.125, 16, 256, 64, 3, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(ALLOC_CASES))
+def test_alloc_kernels_match_plain(gpu, case):
+    """The allocation pass's two kernels ≡ its plain version on the card,
+    three frames chained, at 80×60: 16³ and 64³ grids; more unique cells
+    than max_touched_blocks (the K cap); a pool filled to within 3 slots
+    of max_blocks; candidates outside an 8³ grid, behind the camera and
+    in holes of the depth; submap k = 2 of S = 3 whose other submaps hold
+    random tables, left unchanged."""
+    scale, g, mb, K, S, kk = ALLOC_CASES[case]
+    intr = syn.PinholeIntrinsics().scaled(scale)
+    spec = vx.VoxelGridSpec(voxel_size=0.1, voxels_per_side=8, grid_dim=g,
+                            max_blocks=mb, truncation=0.3)
+    cfg = dataclasses.replace(CFG, max_touched_blocks=K)
+    frames = _orbit(gpu, intr, 3)
+    if case == "edges":
+        frames = [(_edge_depth(d), T) for d, T in frames]
+        big = dataclasses.replace(spec, grid_dim=64)
+        for d, T in frames:     # some valid candidates leave the 8³ grid
+            assert int(cuda_alloc.alloc_candidates_reference(
+                big, cfg, intr, d, T)[1].sum()) > int(
+                cuda_alloc.alloc_candidates_reference(
+                    spec, cfg, intr, d, T)[1].sum())
+    layers = _tables(spec, S, gpu)
+    gen = torch.Generator(device=gpu).manual_seed(S)
+    for s_ in range(S):
+        if s_ != kk:
+            layers.block_index[s_] = torch.randint(
+                -1, mb, layers.block_index[s_].shape, dtype=torch.int32,
+                generator=gen, device=gpu)
+            layers.block_coords[s_] = torch.randint(
+                -g // 2, g // 2, (mb, 3), dtype=torch.int32, generator=gen,
+                device=gpu)
+            layers.num_blocks[s_] = 100 + s_
+    others = [getattr(layers, n)[[s_ for s_ in range(S) if s_ != kk]].clone()
+              for n in ("block_index", "block_coords", "num_blocks")]
+    k = torch.full((), kk, dtype=torch.int32, device=gpu)
+    unique = _alloc_kernels_vs_plain(
+        spec, cfg, intr, layers, k, frames,
+        fill=(1, 3) if case == "near_full" else None)
+    assert int(layers.num_blocks[kk]) > 0
+    rest = [s_ for s_ in range(S) if s_ != kk]
+    for t, n in zip(others, ("block_index", "block_coords", "num_blocks")):
+        assert torch.equal(getattr(layers, n)[rest], t), n
+    if case == "k_cap":
+        assert min(unique) > K
+    if case == "near_full":
+        assert int(layers.num_blocks[kk]) == mb
+
+
+@pytest.mark.cuda
+def test_alloc_kernels_match_plain_at_client_vga(gpu):
+    """One 640×480 frame at client_vga's mapper (5 cm voxels, 16³ blocks,
+    a 64³ grid, 8,192 blocks, 2,048 lanes, stride 4, 3 band samples),
+    then a second frame on the tables the first left."""
+    spec = vx.VoxelGridSpec(voxel_size=0.05, voxels_per_side=16,
+                            grid_dim=64, max_blocks=8192, truncation=0.15)
+    cfg = tsdf.TsdfIntegratorConfig(max_touched_blocks=2048)
+    intr = syn.PinholeIntrinsics()
+    k = torch.zeros((), dtype=torch.int32, device=gpu)
+    layers = _tables(spec, 1, gpu)
+    unique = _alloc_kernels_vs_plain(spec, cfg, intr, layers, k,
+                                     _orbit(gpu, intr, 2, radius=2.4))
+    assert min(unique) > 50 and int(layers.num_blocks[0]) > 150
+
+
+@pytest.mark.cuda
+def test_alloc_kernels_match_plain_over_a_window(gpu):
+    """A 30-frame window at 80×60 chained frame after frame on one
+    scratch, the touched bitmaps ORed over the window alike."""
+    spec = _spec(8)
+    k = torch.zeros((), dtype=torch.int32, device=gpu)
+    layers = _tables(spec, 1, gpu)
+    _alloc_kernels_vs_plain(spec, CFG, INTR, layers, k, _orbit(gpu, INTR, 30))
+    assert int(layers.num_blocks[0]) > 64
+
+
+@pytest.mark.cuda
+def test_alloc_kernels_need_the_scratch(gpu):
+    """On the card the pass refuses to run without the scratch from
+    new_marks: the tables stay as they were and no launch is counted."""
+    spec = _spec(8)
+    layers = _tables(spec, 1, gpu)
+    depth, T = _orbit(gpu, INTR, 1)[0]
+    k = torch.zeros((), dtype=torch.int32, device=gpu)
+    before = cuda_alloc.LAUNCHES
+    with pytest.raises(ValueError, match="new_marks"):
+        cuda_alloc.alloc_pass(spec, CFG, INTR, layers, k, depth, T)
+    assert cuda_alloc.LAUNCHES == before
+    assert int(layers.num_blocks[0]) == 0
+    assert int(layers.block_index.max()) == -1
+
+
+@pytest.mark.cuda
+def test_step_batch_takes_the_alloc_kernels(gpu, monkeypatch):
+    """HostMapper.step_batch on the card: 2 allocation launches and one
+    K1 launch a frame, and no CUDA tensor reaches the plain pass."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain allocation pass ran on the card")
+    monkeypatch.setattr(cuda_alloc, "alloc_pass_reference", refuse)
+    cfg = sm.MapperConfig(spec=_spec(8), integrator=CFG, intrinsics=INTR,
+                          max_submaps=4, max_history=64, submap_interval=10.0)
+    depths, colors, traj = _frames(gpu, 6)
+    hm = sm.HostMapper(cfg, device=gpu)
+    a0, k0 = cuda_alloc.LAUNCHES, cuda_tsdf.LAUNCHES
+    hm.step_batch(depths, colors, traj, np.arange(6) * 0.1)
+    torch.cuda.synchronize()
+    assert cuda_alloc.LAUNCHES - a0 == 12 and cuda_tsdf.LAUNCHES - k0 == 6
+    assert int(hm.state.collection.layers.num_blocks[0]) > 0
 
 
 def _words(gen, *shape, device):
@@ -1084,11 +1280,14 @@ def test_kernel_matches_twin_on_real_depth_with_holes(gpu):
     spec, icfg, intr = cfg.spec, cfg.integrator, cfg.intrinsics
     k = torch.zeros((), dtype=torch.int32, device=gpu)
     lk, lt = _stacked(spec, gpu), _stacked(spec, gpu)
+    marks = cuda_alloc.new_marks(spec, gpu)
     for index in (0, 60):
         (depth, color, T), holes = _real_frame(index, gpu)
         assert holes > 0.001, holes
-        sk, mk = tsdf._alloc_pass(spec, icfg, intr, lk, k, depth, T)
-        st, mt = tsdf._alloc_pass(spec, icfg, intr, lt, k, depth, T)
+        sk, mk = cuda_alloc.alloc_pass(spec, icfg, intr, lk, k, depth, T,
+                                       None, marks)
+        st, mt = cuda_alloc.alloc_pass_reference(spec, icfg, intr, lt, k,
+                                                 depth, T)
         assert torch.equal(sk, st) and torch.equal(mk, mt)
         args = (k, sk, mk, depth, color.permute(2, 0, 1).contiguous(),
                 geo.inverse(T).contiguous())

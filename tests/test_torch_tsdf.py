@@ -29,9 +29,9 @@ from coxgraph_tpu.frontends import synthetic as jsyn
 from coxgraph_tpu.ops import pallas_tsdf
 from coxgraph_tpu.ops import tsdf as jtsdf
 from coxgraph_tpu_torch.core import voxel as vx
-from coxgraph_tpu_torch.ops import cuda_tsdf
+from coxgraph_tpu_torch.ops import cuda_alloc, cuda_tsdf
 from coxgraph_tpu_torch.ops import tsdf
-from coxgraph_tpu_torch.utils import interop
+from coxgraph_tpu_torch.utils import interop, tensorops
 
 CPU = torch.device("cpu")
 JINTR = jsyn.PinholeIntrinsics().scaled(0.125)  # 80x60
@@ -75,8 +75,8 @@ def test_alloc_candidates_exact():
         gj, vj = jtsdf._alloc_candidates_soa(JSPEC, JCFG, JINTR,
                                              jnp.asarray(depths[f]),
                                              jnp.asarray(traj[f]))
-        gp, vp = tsdf._alloc_candidates_soa(SPEC, CFG, INTR, _t(depths[f]),
-                                            _t(traj[f]))
+        gp, vp = cuda_alloc.alloc_candidates_reference(
+            SPEC, CFG, INTR, _t(depths[f]), _t(traj[f]))
         assert gp.dtype == torch.int32 and vp.dtype == torch.bool
         np.testing.assert_array_equal(vp.numpy(), np.asarray(vj))
         n_diff += int((gp.numpy() != np.asarray(gj))[vp.numpy()].sum())
@@ -91,7 +91,7 @@ def test_alloc_candidates_exact():
 def test_decimate_matches_jax(st):
     img = np.random.default_rng(st).normal(size=(2, 13, 22)).astype(
         np.float32)
-    np.testing.assert_array_equal(tsdf.decimate(_t(img), st).numpy(),
+    np.testing.assert_array_equal(tensorops.decimate(_t(img), st).numpy(),
                                   np.asarray(jtsdf.decimate(
                                       jnp.asarray(img), st)))
 

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the time of one integrate_batch window goes, on a CUDA GPU.
+"""Where the time of one integrate_batch window goes, on a CUDA GPU, and
+the allocation pass timed alone.
 
     python3 tools/profile_torch_integrate.py [--frames 30] [--out DIR]
 
@@ -10,12 +11,19 @@ time, the summed device time of its kernels, the device busy share
 (summed device-side event time / wall time; one stream, so events do
 not overlap),
 and the kernels and host operations that take the most time. With --out,
-writes the Chrome trace there. Fails when no CUDA GPU is present.
+writes the Chrome trace there.
+
+Then the allocation pass alone at client_vga's shapes over the same
+clip, as ``chip_smoke.py`` phase 6 runs it (``alloc_pass_record``: the
+two kernels ≡ the plain version on every frame, then both timed on a
+steady frame beside the bytes' bound), as one JSON line
+(``"alloc_pass"``). Fails when no CUDA GPU is present.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -23,7 +31,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 import torch  # noqa: E402
-from chip_smoke import print_top, profiled  # noqa: E402
+from chip_smoke import alloc_pass_record, print_top, profiled  # noqa: E402
 
 
 def main() -> None:
@@ -56,6 +64,9 @@ def main() -> None:
         os.makedirs(args.out, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.out,
                                               "integrate_window.json"))
+    del state
+    rec = alloc_pass_record(device, depths, traj, runtime.gpu_identity())
+    print(json.dumps({"alloc_pass": "client_vga", **rec}))
 
 
 if __name__ == "__main__":

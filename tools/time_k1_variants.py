@@ -132,8 +132,7 @@ def bench_point(device, vps=16):
     from coxgraph_tpu_torch.core import geometry as geo
     from coxgraph_tpu_torch.eval import benchmarks as bm
     from coxgraph_tpu_torch.mapper import submap_mapper as sm
-    from coxgraph_tpu_torch.ops import cuda_tsdf
-    from coxgraph_tpu_torch.ops import tsdf as tsdf_ops
+    from coxgraph_tpu_torch.ops import cuda_alloc, cuda_tsdf
 
     cfg = bm._mapper_config()
     cfg = dataclasses.replace(cfg, spec=dataclasses.replace(
@@ -142,10 +141,11 @@ def bench_point(device, vps=16):
     planar = colors.permute(0, 3, 1, 2).contiguous()
     layers = sm.create_collection(cfg, device).layers
     k = torch.zeros((), dtype=torch.int32, device=device)
+    marks = cuda_alloc.new_marks(cfg.spec, device)
     for f in range(2):
-        slots, mask = tsdf_ops._alloc_pass(cfg.spec, cfg.integrator,
-                                           cfg.intrinsics, layers, k,
-                                           depths[f], traj[f])
+        slots, mask = cuda_alloc.alloc_pass(cfg.spec, cfg.integrator,
+                                            cfg.intrinsics, layers, k,
+                                            depths[f], traj[f], None, marks)
         args = (k, slots, mask, depths[f], planar[f], geo.inverse(traj[f]))
         if f == 0:
             cuda_tsdf.update_blocks(cfg.spec, cfg.integrator,

@@ -37,6 +37,12 @@ POS_TOL = 1e-3     # m per triangle vertex: the served mesh's quantised
 RGB_TOL = 3e-3     # per vertex channel: the readback's 8-bit colour
 ESDF_TOL = 1e-3    # m
 
+# tests/tiny.py's CPU cut (see stream.TINY)
+TINY = {"mix": {"window_frames": 10, "lap_frames": 20, "mission_submaps": 3,
+                "max_frames": 3000, "rate_hz": 10, "serve_period_s": 0.5,
+                "trace_seconds": 1.0},
+        "config": {"mapper": {"max_submaps": 4, "submap_interval": 20 / 30}}}
+
 
 class Driver(stream.Driver):
     def __init__(self, cfg: dict, mix: dict, seed: int, device):

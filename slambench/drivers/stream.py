@@ -28,6 +28,13 @@ from slambench.harness import port, trace
 from slambench.reference import compare, geometry as geo, tsdf as ref_tsdf
 from slambench.traffic import synthetic as syn
 
+# the cut that tests/tiny.py applies on the CPU, beyond its common camera
+# and tsdf cut: to the traffic file ("mix") and to the configuration
+# sections this driver reads ("config"); a plain expression, read unrun
+TINY = {"mix": {"window_frames": 10, "lap_frames": 20, "mission_submaps": 3,
+                "max_frames": 3000, "trace_windows": 2},
+        "config": {"mapper": {"max_submaps": 4, "submap_interval": 20 / 30}}}
+
 
 class Driver:
     def __init__(self, cfg: dict, mix: dict, seed: int, device):

@@ -4,12 +4,35 @@ never does."""
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
 def fence(device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def tracing(on: bool = True):
+    """The port's program tracing (``runtime.tracing``: its ``cox.`` spans
+    and counters) switched ``on`` for the block, and off after it."""
+    from coxgraph_tpu_torch import runtime
+
+    runtime.tracing(on)
+    try:
+        yield
+    finally:
+        runtime.tracing(False)
+
+
+def counters() -> dict:
+    """The port's counters so far (``runtime.snapshot()["counters"]``);
+    a driver differences two readings around its stretch."""
+    from coxgraph_tpu_torch import runtime
+
+    return runtime.snapshot()["counters"]
 
 
 def mapper_config(cfg: dict):

@@ -1,22 +1,33 @@
 """What a traced run reads: a stretch of work under ``torch.profiler``
 (kernel table, launches, the device's busy union, the longest idle gaps
-and what the host was doing in them) and a stretch under CUDA's sync
-debug mode (host syncs counted).
+and what the host was doing in them, the program's spans) and a stretch
+under CUDA's sync debug mode (host syncs counted).
 
 The profiler arithmetic is the one of ``chip_smoke.profiled`` and
 ``tools/profile_torch_*.py``, copied; the busy time is the union of the
-device-side intervals, so overlapping events are not counted twice.
+device-side intervals, so overlapping events are not counted twice. The
+driver's ``slambench.`` ranges and the port's ``cox.`` ranges (its
+program spans, on while ``port.tracing`` is) show on the device's
+timeline too: they are annotations, not work, and are left out.
 """
 
 from __future__ import annotations
 
+import bisect
 import time
 import warnings
+from collections import namedtuple
 
 import torch
 
 LAUNCH_KEYS = ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC")
 SPAN_PREFIX = "slambench."
+PROGRAM_PREFIX = "cox."          # coxgraph_tpu_torch.runtime.SPAN_PREFIX
+ANNOTATIONS = (SPAN_PREFIX, PROGRAM_PREFIX)
+NONE = "(none)"                  # what no program span holds
+
+# one profiler event, in ns on one clock
+Event = namedtuple("Event", "name device start end tid corr linked")
 
 
 def span(name: str):
@@ -62,21 +73,120 @@ def _union(intervals):
 
 
 def _label(cpu, t: float) -> str:
-    """The innermost driver span and the innermost host op around t."""
-    spans = [(e - s, n) for s, e, n in cpu
-             if s <= t <= e and n.startswith(SPAN_PREFIX)]
-    ops = [(e - s, n) for s, e, n in cpu
-           if s <= t <= e and not n.startswith(SPAN_PREFIX)]
-    sp = min(spans)[1][len(SPAN_PREFIX):] if spans else "driver"
-    op = min(ops)[1] if ops else "host"
-    return f"{sp}/{op}"
+    """The innermost driver span, the innermost program span (where one
+    is open) and the innermost host op around t."""
+    around = [(e - s, n) for s, e, n in cpu if s <= t <= e]
+    spans = [x for x in around if x[1].startswith(SPAN_PREFIX)]
+    prog = [x for x in around if x[1].startswith(PROGRAM_PREFIX)]
+    ops = [x for x in around if not x[1].startswith(ANNOTATIONS)]
+    parts = [min(spans)[1][len(SPAN_PREFIX):] if spans else "driver"]
+    if prog:
+        parts.append(min(prog)[1][len(PROGRAM_PREFIX):])
+    parts.append(min(ops)[1] if ops else "host")
+    return "/".join(parts)
+
+
+def events(prof) -> list:
+    """The profiler's events as ``Event`` tuples."""
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        s = _ns(ev, "start")
+        out.append(Event(ev.name(), str(ev.device_type()).endswith("CUDA"),
+                         s, s + _ns(ev, "duration"), ev.start_thread_id(),
+                         ev.correlation_id(), ev.linked_correlation_id()))
+    return out
+
+
+def _work(e) -> bool:
+    return e.device and not e.name.startswith(ANNOTATIONS)
+
+
+def busy(evs: list):
+    """The device's work in a trace of ``Event`` tuples → (the union of
+    its intervals in ns, the gaps between them as (start, end))."""
+    return _union([(e.start, e.end) for e in evs if _work(e)])
+
+
+class _Innermost:
+    """One thread's program spans, properly nested: the innermost one open
+    at any moment (``at``: its index, or -1 for none)."""
+
+    def __init__(self, spans: list):
+        self.t, self.top = [], []
+        stack = []
+        for i in sorted(range(len(spans)),
+                        key=lambda i: (spans[i].start, -spans[i].end)):
+            while stack and spans[stack[-1]].end <= spans[i].start:
+                j = stack.pop()
+                self._mark(spans[j].end, stack[-1] if stack else -1)
+            stack.append(i)
+            self._mark(spans[i].start, i)
+        while stack:
+            j = stack.pop()
+            self._mark(spans[j].end, stack[-1] if stack else -1)
+
+    def _mark(self, t, top) -> None:
+        if self.t and self.t[-1] == t:
+            self.top[-1] = top
+        else:
+            self.t.append(t)
+            self.top.append(top)
+
+    def at(self, t) -> int:
+        k = bisect.bisect_right(self.t, t) - 1
+        return self.top[k] if k >= 0 else -1
+
+
+def attribute(evs: list) -> dict:
+    """The program's spans in a trace of ``Event`` tuples → {span name:
+    {"n", "launches", "device_s", "kernels": {device op: s}}}. Each
+    launch, and the device time of the work a runtime call issued (found
+    by its correlation id), is charged to the innermost program span open
+    on the calling thread when it was called; ``NONE`` holds what was
+    issued outside every span or whose call is not in the trace. The
+    ``slambench.`` and ``cox.`` annotations on the device are no work.
+    ``tools/profile_torch_spans.breakdown``'s arithmetic, copied."""
+    host = [e for e in evs if not e.device]
+    by_tid = {}
+    for e in host:
+        if e.name.startswith(PROGRAM_PREFIX):
+            by_tid.setdefault(e.tid, []).append(e)
+    nests = {tid: (sp, _Innermost(sp)) for tid, sp in by_tid.items()}
+    rows = {}
+
+    def row(name):
+        return rows.setdefault(name, {"n": 0, "launches": 0, "device_s": 0.0,
+                                      "kernels": {}})
+
+    def owner(e) -> str:
+        sp, nest = nests.get(e.tid, ((), None))
+        i = nest.at(e.start) if nest is not None else -1
+        return sp[i].name[len(PROGRAM_PREFIX):] if i >= 0 else NONE
+
+    for sp, _ in nests.values():
+        for s in sp:
+            row(s.name[len(PROGRAM_PREFIX):])["n"] += 1
+    row(NONE)
+    calls = {e.corr: e for e in host if e.name.startswith("cu")}
+    for e in host:
+        if e.name in LAUNCH_KEYS:
+            row(owner(e))["launches"] += 1
+    for w in filter(_work, evs):
+        c = calls.get(w.corr) or calls.get(w.linked)
+        r = row(owner(c) if c is not None else NONE)
+        dt = (w.end - w.start) * 1e-9
+        r["device_s"] += dt
+        r["kernels"][w.name] = r["kernels"].get(w.name, 0.0) + dt
+    return rows
 
 
 def profile(fn) -> dict:
     """``fn()`` traced, fenced at both ends → the stretch's record:
     ``window_s`` (host wall), ``busy_s`` (union of device-side events),
     ``launches``, ``kernels`` {name: [count, device s]}, ``device_ops``
-    and ``idle_gaps`` (the ten largest, labelled by the host's activity).
+    and ``idle_gaps`` (the ten largest, labelled by the host's activity),
+    ``spans`` (``attribute``: the program's spans, while the port's
+    tracing is on; else ``NONE`` alone).
     """
     from torch.profiler import ProfilerActivity, profile as _profile
 
@@ -92,29 +202,22 @@ def profile(fn) -> dict:
     for e in table:
         d = _device_us(e)
         if (str(e.device_type).endswith("CUDA") and d > 0
-                and not e.key.startswith(SPAN_PREFIX)):
+                and not e.key.startswith(ANNOTATIONS)):
             k = kernels.setdefault(e.key, [0, 0.0])
             k[0] += e.count
             k[1] += d * 1e-6
     launches = sum(e.count for e in table if e.key in LAUNCH_KEYS)
-    dev, cpu = [], []
-    for ev in prof.profiler.kineto_results.events():
-        s = _ns(ev, "start")
-        e = s + _ns(ev, "duration")
-        if str(ev.device_type()).endswith("CUDA"):
-            # a driver span shows on the device's timeline too: not work
-            if not ev.name().startswith(SPAN_PREFIX):
-                dev.append((s, e))
-        else:
-            cpu.append((s, e, ev.name()))
-    busy_ns, gaps = _union(dev)
+    evs = events(prof)
+    busy_ns, gaps = busy(evs)
+    cpu = [(e.start, e.end, e.name) for e in evs if not e.device]
     gaps.sort(key=lambda g: g[0] - g[1])
     idle = [[_label(cpu, 0.5 * (a + b)), (b - a) * 1e-9]
             for a, b in gaps[:10]]
     ops = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:10]
     return {"out": out, "window_s": wall, "busy_s": busy_ns * 1e-9,
             "launches": launches, "kernels": kernels,
-            "device_ops": [[k, v[1]] for k, v in ops], "idle_gaps": idle}
+            "device_ops": [[k, v[1]] for k, v in ops], "idle_gaps": idle,
+            "spans": attribute(evs)}
 
 
 def device_busy(fn, cuda: bool = True) -> dict:
@@ -143,7 +246,7 @@ def device_busy(fn, cuda: bool = True) -> dict:
         d = ev.device_type()
         if kind is None and str(d).endswith(want):
             kind = d
-        if d == kind and not ev.name().startswith(SPAN_PREFIX):
+        if d == kind and not ev.name().startswith(ANNOTATIONS):
             s = _ns(ev, "start")
             dev.append((s, s + _ns(ev, "duration")))
     busy_ns, _ = _union(dev)

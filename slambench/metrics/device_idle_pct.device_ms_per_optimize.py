@@ -1,7 +1,7 @@
 """Share of the solve's profiled stretch (back-to-back optimizes) in
 which no operation ran on the device."""
 
-MOVES = "optimize_ms"
+MOVES = "device_ms_per_optimize"
 UNIT = "%"
 
 

@@ -1,7 +1,7 @@
 """Host syncs per CoxgraphServer.optimize, counted under CUDA's sync
 debug mode."""
 
-MOVES = "optimize_ms"
+MOVES = "device_ms_per_optimize"
 UNIT = "syncs"
 
 

@@ -1,6 +1,6 @@
 """Kernel launches per CoxgraphServer.optimize in the profiled stretch."""
 
-MOVES = "optimize_ms"
+MOVES = "device_ms_per_optimize"
 UNIT = "launches"
 
 

@@ -1,8 +1,8 @@
 """The benchmark at a size the CPU holds: each cell agrees with the plain
 reference through the port's CPU twins; the lower-precision control and
 each fault planted under the timed path make ``correct`` false; the last
-line holds the contract's keys; a cell, a configuration and a metric
-added as new files run with no file edited."""
+line holds the contract's keys; cells, configurations, drivers, faults
+and metrics added as new files run with no file edited."""
 
 from __future__ import annotations
 
@@ -14,85 +14,10 @@ import pytest
 
 from . import tiny
 
-CELLS = ("client_vga.stream", "cvg_two_client.solve", "client_vga.serve")
+CELLS = tiny.cells()
 KEYS = {"correct", "attempted", "failed", "metrics", "device", "checks"}
-
-# faults planted under the timed path, per cell: the state left unchanged,
-# half of each batch left out, an answer altered where it is produced
-FAULTS = {
-    "client_vga.stream": {
-        "unchanged": """
-from coxgraph_tpu_torch.mapper import submap_mapper as sm
-sm.HostMapper.step_batch = lambda self, d, c, T, ts: 0
-""",
-        "half_batch": """
-from coxgraph_tpu_torch.mapper import submap_mapper as sm
-_step = sm.HostMapper.step_batch
-def _half(self, d, c, T, ts):
-    n = len(ts) // 2
-    return _step(self, d[:n], c[:n], T[:n], ts[:n])
-sm.HostMapper.step_batch = _half
-""",
-        "altered": """
-from coxgraph_tpu_torch.ops import cuda_tsdf, tsdf
-_upd = cuda_tsdf.update_blocks
-def _bad(spec, cfg, intr, layers, k, slots, mask, *a):
-    _upd(spec, cfg, intr, layers, k, slots, mask, *a)
-    rows = (k.long() * spec.max_blocks + slots.long())[mask]
-    layers.sdf.view(-1, layers.sdf.shape[-1])[rows] += 0.01
-tsdf.cuda_tsdf.update_blocks = _bad
-""",
-    },
-    "cvg_two_client.solve": {
-        "unchanged": """
-from coxgraph_tpu_torch.server import fusion_server as fs
-fs.CoxgraphServer.optimize = lambda self, push_updates=True: {}
-""",
-        "half_batch": """
-import dataclasses
-from coxgraph_tpu_torch.server import global_opt, fusion_server as fs
-_solve = global_opt.optimize_two_phase
-def _half(poses, constraints, *a, **k):
-    valid = constraints.valid.clone()
-    valid[1::2] = False
-    return _solve(poses, dataclasses.replace(constraints, valid=valid),
-                  *a, **k)
-fs.global_opt.optimize_two_phase = _half
-""",
-        "altered": """
-from coxgraph_tpu_torch.server import global_opt, fusion_server as fs
-_solve = global_opt.optimize_two_phase
-def _bad(*a, **k):
-    poses, info = _solve(*a, **k)
-    poses = poses.clone()
-    poses[:, 4] += 0.05
-    return poses, info
-fs.global_opt.optimize_two_phase = _bad
-""",
-    },
-    "client_vga.serve": {
-        "unchanged": """
-from coxgraph_tpu_torch.mapper import submap_mapper as sm
-sm.HostMapper.step = lambda self, *a, **k: False
-""",
-        "half_batch": """
-from coxgraph_tpu_torch.mapper import submap_mapper as sm
-_step = sm.HostMapper.step
-def _half(self, depth, color, T, t):
-    self._n = getattr(self, "_n", 0) + 1
-    return _step(self, depth, color, T, t) if self._n % 2 else False
-sm.HostMapper.step = _half
-""",
-        "altered": """
-from coxgraph_tpu_torch.mapper import submap_mapper as sm
-_mesh = sm.HostMapper.live_mesh
-def _bad(self, *a, **k):
-    v, c = _mesh(self, *a, **k)
-    return v + 0.01, c
-sm.HostMapper.live_mesh = _bad
-""",
-    },
-}
+# faults planted under the timed path, per cell (tests/faults/<cell>/)
+FAULTS = tiny.faults()
 
 
 @pytest.fixture(scope="module")
@@ -126,6 +51,11 @@ def test_control_fails(root, cell):
     assert any(v > lim for _, v, lim in checks), checks
 
 
+@pytest.mark.parametrize("cell", CELLS)
+def test_cell_plants_every_kind_of_fault(cell):
+    assert set(tiny.KINDS) <= set(FAULTS[cell]), FAULTS[cell].keys()
+
+
 @pytest.mark.parametrize("cell,fault", [(c, f) for c in CELLS
                                         for f in FAULTS[c]])
 def test_fault_fails(root, cell, fault):
@@ -152,31 +82,142 @@ def test_traced_line(root, cell):
         assert m["value"] >= 0
 
 
+# a cell of a new kind, as a later change would add it: a driver of its
+# own (the stream with the port's tracing on around its traced stretch)
+# whose CPU cut names a configuration section tiny.py does not know, a
+# traffic file with no key of another driver's, its three faults, and
+# readers of the program's spans and counters
+PROBE_DRIVER = '''"""The stream, its traced stretch with the port's tracing on."""
+
+from slambench.drivers import stream
+from slambench.harness import port
+
+TINY = {"mix": {"window_frames": 10, "lap_frames": 20, "mission_submaps": 3,
+                "max_frames": 3000, "trace_windows": 2},
+        "config": {"mapper": {"max_submaps": 4, "submap_interval": 20 / 30},
+                   "probe": {"budget": 8}}}
+
+
+class Driver(stream.Driver):
+    def trace(self):
+        before = port.counters()
+        with port.tracing():
+            rec = super().trace()
+        after = port.counters()
+        rec["counters"] = {k: v - before.get(k, 0) for k, v in after.items()}
+        return rec
+'''
+PROBE_READERS = {
+    "alloc_spans_per_frame.device_ms_per_frame": '''MOVES = "device_ms_per_frame"
+UNIT = "spans"
+
+
+def read(rec):
+    s = rec.get("spans", {}).get("tsdf.alloc")
+    if not s or not rec.get("frames"):
+        return None
+    return s["n"] / rec["frames"]
+''',
+    "frames_counted.device_ms_per_frame": '''MOVES = "device_ms_per_frame"
+UNIT = "frames"
+
+
+def read(rec):
+    c = rec.get("counters", {}).get("mapper.frames")
+    if not c:
+        return None
+    return c / (rec["frames"] + rec["sync_frames"])
+''',
+}
+
+
+def _add_new_files(b: str) -> None:
+    """Files a later change adds, at full size: a configuration, cell and
+    metric on an existing driver, and a cell of a new driver kind."""
+    def load(*p):
+        with open(os.path.join(b, *p)) as f:
+            return json.load(f)
+
+    def save(d, *p):
+        os.makedirs(os.path.join(b, *p[:-1]), exist_ok=True)
+        with open(os.path.join(b, *p), "w") as f:
+            if isinstance(d, str):
+                f.write(d)
+            else:
+                json.dump(d, f)
+
+    cfg = load("configs", "client_vga.json")
+    w = load("workloads", "client_vga.stream.json")
+    flat = dict(cfg, odometry=dict(cfg["odometry"], z_bias=0.0))
+    save(flat, "configs", "client_flat.json")
+    save(dict(w, config="client_flat"), "workloads",
+         "client_flat.stream.json")
+    save('MOVES = "device_ms_per_frame"\nUNIT = "frames"\n\n\n'
+         'def read(rec):\n    return rec.get("frames")\n',
+         "metrics", "frames_traced.device_ms_per_frame.py")
+    save(dict(cfg, probe={"budget": 1000}, extra={"max_submaps": 99}),
+         "configs", "client_probe.json")
+    save(dict(load("traffic", "stream.json"), driver="probe"),
+         "traffic", "probe.json")
+    save(dict(w, config="client_probe", traffic="probe"), "workloads",
+         "client_probe.probe.json")
+    save(PROBE_DRIVER, "drivers", "probe.py")
+    for name, text in PROBE_READERS.items():
+        save(text, "metrics", name + ".py")
+    for f, text in FAULTS["client_vga.stream"].items():
+        save(text, "tests", "faults", "client_probe.probe", f + ".py")
+
+
 def test_new_files_only(tmp_path):
-    """A new configuration, cell and per-layer metric, added as files."""
+    """A new configuration, cell and per-layer metric on an existing
+    driver, and a cell of a new driver kind, added as files."""
+    from concurrent.futures import ThreadPoolExecutor
+
     root = str(tmp_path)
-    b = tiny.make(root)
-    with open(os.path.join(b, "configs", "client_vga.json")) as f:
+    b = tiny.make(root, add=_add_new_files)
+    new = "client_probe.probe"
+    assert "client_flat.stream" in tiny.cells(b) and new in tiny.cells(b)
+    assert tiny.faults(b)[new] == FAULTS["client_vga.stream"]
+    with open(os.path.join(b, "configs", "client_probe.json")) as f:
         cfg = json.load(f)
-    cfg["odometry"]["z_bias"] = 0.0
-    with open(os.path.join(b, "configs", "client_flat.json"), "w") as f:
-        json.dump(cfg, f)
-    with open(os.path.join(b, "workloads", "client_vga.stream.json")) as f:
-        w = json.load(f)
-    w["config"] = "client_flat"
-    with open(os.path.join(b, "workloads", "client_flat.stream.json"),
-              "w") as f:
-        json.dump(w, f)
-    with open(os.path.join(b, "metrics", "frames_traced."
-                           "device_ms_per_frame.py"), "w") as f:
-        f.write('MOVES = "device_ms_per_frame"\nUNIT = "frames"\n\n\n'
-                'def read(rec):\n    return rec.get("frames")\n')
-    rc, line, err = tiny.run(root, "client_flat.stream", trace=1)
-    assert rc == 0, err[-3000:]
-    assert line["correct"]
-    assert line["metrics"]["frames_traced.device_ms_per_frame"]["value"] > 0
-    # a metric of another end-to-end metric stays out of this cell
-    assert not any(n.endswith(".optimize_ms") for n in line["metrics"])
+    assert cfg["camera"]["width"] == 80 and cfg["mapper"]["max_submaps"] == 4
+    assert cfg["probe"] == {"budget": 8}           # the new driver's cut
+    assert cfg["extra"] == {"max_submaps": 99}     # a section none cuts
+    with open(os.path.join(b, "traffic", "probe.json")) as f:
+        assert json.load(f)["window_frames"] == 10
+
+    # two runs at a time: more would slow the open-loop serve cell that
+    # other test workers run beside this one
+    with ThreadPoolExecutor(2) as pool:
+        flat = pool.submit(tiny.run, root, "client_flat.stream", trace=1)
+        probe = pool.submit(tiny.run, root, new, trace=1)
+        control = pool.submit(tiny.control, root, new)
+        faulty = {f: pool.submit(tiny.run, root, new, seed=13, patch=p)
+                  for f, p in tiny.faults(b)[new].items()}
+        rc, line, err = flat.result()
+        assert rc == 0, err[-3000:]
+        assert line["correct"]
+        m = line["metrics"]
+        assert m["frames_traced.device_ms_per_frame"]["value"] > 0
+        # a metric of another end-to-end metric stays out of this cell
+        assert not any(n.endswith(".device_ms_per_optimize") for n in m)
+        # readers of the program's spans find nothing with tracing off
+        assert not set(PROBE_READERS) & set(m)
+
+        rc, line, err = probe.result()
+        assert rc == 0, err[-3000:]
+        assert line["correct"], line["checks"]
+        m = line["metrics"]
+        # one allocation span a frame, every frame counted by the port
+        assert m["alloc_spans_per_frame.device_ms_per_frame"]["value"] == 1.0
+        assert m["frames_counted.device_ms_per_frame"]["value"] == 1.0
+        assert m["frames_traced.device_ms_per_frame"]["value"] > 0
+        checks = control.result()
+        assert any(v > lim for _, v, lim in checks), checks
+        for f, fut in faulty.items():
+            rc, line, err = fut.result()
+            assert rc == 0, err[-3000:]
+            assert not line["correct"], (f, line["checks"])
 
 
 def test_no_jax_in_a_run(root):

@@ -2,10 +2,19 @@
 blocks, a few submaps), for the tests: the same files, cells, drivers and
 readers, with only the sizes in the configuration and traffic files cut.
 Runs go through ``harness.core.run`` with the look for a chip skipped, in
-a subprocess, so the copy imports as ``slambench``."""
+a subprocess, so the copy imports as ``slambench``.
+
+The cuts come from the files: for each cell ``workloads/<cell>.json``, the
+common camera and tsdf cut below, then the ``TINY`` of the driver its
+traffic file names (``drivers/<driver>.py``), which cuts the traffic file
+and the configuration sections that driver reads. A section no cut names
+is left as it is. The cells are the workload files, and each cell's
+planted faults are ``tests/faults/<cell>/<fault>.py``."""
 
 from __future__ import annotations
 
+import ast
+import glob
 import json
 import os
 import shutil
@@ -15,55 +24,106 @@ import sys
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO = os.path.dirname(BENCH)
 
-CAMERA = {"width": 80, "height": 60, "fx": 65.625, "fy": 65.625,
-          "cx": 39.5, "cy": 29.5}
-TSDF = {"voxels_per_side": 8, "grid_dim": 32, "max_blocks": 512,
-        "max_touched_blocks": 256}
+COMMON = {"camera": {"width": 80, "height": 60, "fx": 65.625, "fy": 65.625,
+                     "cx": 39.5, "cy": 29.5},
+          "tsdf": {"voxels_per_side": 8, "grid_dim": 32, "max_blocks": 512,
+                   "max_touched_blocks": 256}}
+# the kinds of fault every cell plants under its timed path: the state
+# left unchanged, half of each batch left out, an answer altered where it
+# is produced
+KINDS = ("unchanged", "half_batch", "altered")
 
 
-def _edit(path: str, fn) -> None:
+def cells(bench: str = BENCH) -> list:
+    """The cells of the benchmark under ``bench``: its workload files."""
+    return sorted(os.path.basename(p)[:-len(".json")] for p in
+                  glob.glob(os.path.join(bench, "workloads", "*.json")))
+
+
+def faults(bench: str = BENCH) -> dict:
+    """{cell: {fault: the code that plants it}} from
+    ``tests/faults/<cell>/<fault>.py``, the three kinds first."""
+    out = {}
+    for c in cells(bench):
+        d = os.path.join(bench, "tests", "faults", c)
+        names = [os.path.basename(p)[:-len(".py")]
+                 for p in glob.glob(os.path.join(d, "*.py"))]
+        out[c] = {}
+        for f in sorted(names, key=lambda f: (
+                KINDS.index(f) if f in KINDS else len(KINDS), f)):
+            with open(os.path.join(d, f + ".py")) as fh:
+                out[c][f] = fh.read()
+    return out
+
+
+def driver_cut(path: str) -> dict:
+    """A driver module's ``TINY`` ({"mix": ..., "config": ...}), read
+    from its source without running it ({} where it has none)."""
     with open(path) as f:
-        d = json.load(f)
-    fn(d)
-    with open(path, "w") as f:
-        json.dump(d, f, indent=1)
+        tree = ast.parse(f.read(), path)
+    for node in tree.body:
+        if (isinstance(node, ast.Assign) and len(node.targets) == 1
+                and getattr(node.targets[0], "id", None) == "TINY"):
+            return eval(compile(ast.Expression(node.value), path, "eval"),
+                        {"__builtins__": {}})
+    return {}
 
 
-def _cfg(c: dict) -> None:
-    c["camera"].update(CAMERA)
-    c["tsdf"].update(TSDF)
-    if "server" in c:
-        c["mapper"].update(max_submaps=6, submap_interval=2.0)
-        c["server"].update(max_submaps=12, refuse_interval=4.0)
-        c["registration"].update(max_points=256, max_reg_blocks=128)
-    else:
-        c["mapper"].update(max_submaps=4, submap_interval=20 / 30)
+def _merge(d: dict, cut: dict) -> None:
+    """``cut`` into ``d``: a nested cut into the section of the same name
+    where ``d`` has one (none: skipped), any other value set."""
+    for k, v in cut.items():
+        if isinstance(v, dict):
+            if isinstance(d.get(k), dict):
+                _merge(d[k], v)
+        else:
+            d[k] = v
 
 
-def _mix(t: dict) -> None:
-    if t["driver"] == "stream":
-        t.update(window_frames=10, lap_frames=20, mission_submaps=3,
-                 max_frames=3000, trace_windows=2)
-    elif t["driver"] == "serve":
-        t.update(window_frames=10, lap_frames=20, mission_submaps=3,
-                 max_frames=3000, rate_hz=10, serve_period_s=0.5,
-                 trace_seconds=1.0)
-    else:
-        t.update(lap_frames=60, submaps_per_robot=6, trace_optimizes=1)
-        t["fusion"].update(interval=4.0, to_offset=1.0)
+def _join(a: dict, b: dict, where: str) -> None:
+    """Cut ``b`` joined into cut ``a``; two values for one key raise."""
+    for k, v in b.items():
+        if isinstance(v, dict) and isinstance(a.get(k), dict):
+            _join(a[k], v, f"{where}.{k}")
+        elif a.setdefault(k, v) != v:
+            raise ValueError(f"{where}.{k}: cut to {a[k]!r} and to {v!r} "
+                             "by the drivers of two cells")
 
 
-def make(root: str) -> str:
+def cut(dst: str) -> None:
+    """Cut the configuration and traffic files of every cell of the copy
+    ``dst`` to the CPU's size, each file once."""
+    cuts = {}
+    for c in cells(dst):
+        with open(os.path.join(dst, "workloads", c + ".json")) as f:
+            w = json.load(f)
+        cfg = os.path.join("configs", w["config"] + ".json")
+        mix = os.path.join("traffic", w["traffic"] + ".json")
+        with open(os.path.join(dst, mix)) as f:
+            drv = json.load(f)["driver"]
+        t = driver_cut(os.path.join(dst, "drivers", drv + ".py"))
+        for path, val in ((cfg, COMMON), (cfg, t.get("config", {})),
+                          (mix, t.get("mix", {}))):
+            _join(cuts.setdefault(path, {}), json.loads(json.dumps(val)),
+                  path)
+    for path, val in cuts.items():
+        with open(os.path.join(dst, path)) as f:
+            d = json.load(f)
+        _merge(d, val)
+        with open(os.path.join(dst, path), "w") as f:
+            json.dump(d, f, indent=1)
+
+
+def make(root: str, add=None) -> str:
     """A tiny copy of the benchmark under ``root`` → the copy's root
-    (``root``/slambench)."""
+    (``root``/slambench). ``add(copy)``, where given, adds files to the
+    copy at full size before the cut, as a later change adds them."""
     dst = os.path.join(root, "slambench")
     shutil.copytree(BENCH, dst, ignore=shutil.ignore_patterns(
         ".cache", "__pycache__"))
-    for name in os.listdir(os.path.join(dst, "configs")):
-        _edit(os.path.join(dst, "configs", name), _cfg)
-    for name in os.listdir(os.path.join(dst, "traffic")):
-        if name.endswith(".json"):
-            _edit(os.path.join(dst, "traffic", name), _mix)
+    if add is not None:
+        add(dst)
+    cut(dst)
     return dst
 
 

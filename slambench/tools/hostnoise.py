@@ -91,9 +91,13 @@ def main() -> None:
         loop = py_loop_s()
         launch = launches_s(x)
         th0, g0, gn0 = time.thread_time(), gct.t, list(gct.n)
+        t0 = time.perf_counter()
         e2e = d.window(args.seconds)
+        wall = time.perf_counter() - t0
         th1 = time.thread_time()
-        rate = d.rec["frames_per_s"] if bare else next(
+        # the stream's frames/s; else ms per call of the window
+        rate = d.rec.get("frames_per_s",
+                         1e3 * wall / e2e["attempted"]) if bare else next(
             v for k, v in e2e.items() if k.endswith("_ms"))
         print(json.dumps({
             "window": w, "rate": rate, "py_loop_s": loop,

@@ -14,6 +14,18 @@ Capacity: the device database is a FIXED pool of
 (``index_copy_``; the JAX package donates the pools). On saturation the
 OLDEST keyframe of the MOST-REPRESENTED client is evicted, with a warning,
 counted in ``dropped_keyframes``.
+
+Tracing (``runtime.span`` / ``runtime.count``, off by default): each
+sub-batch and each single frame is described under ``detect.features``
+(detection and description), then ingested under ``detect.ingest``,
+which holds the leaf spans ``detect.eligibility`` (the host mask and its
+upload), ``detect.match``
+(the scoring launches over the pool), ``detect.verify`` (top-K, the
+verification match, RANSAC and the spread), ``detect.read`` (the one
+device-to-host read) and ``detect.append`` (slot allocation with eviction
+and the in-place write); counters ``detect.keyframes``,
+``detect.evictions``, ``detect.candidates`` (candidates verified) and
+``detect.closures`` (messages emitted).
 """
 
 from __future__ import annotations
@@ -91,8 +103,20 @@ def _match_and_verify_batch(db_desc, db_valid, db_pcam, db_hdep,
     elig_b: (B, cap) bool device mask. → (scores (B, max_cand), slots
     (B, max_cand), T (B, max_cand, 7), n_inliers (B, max_cand), spreads
     (B, max_cand)), all on the device; issues no device-to-host read."""
-    counts = _count_matches(db_desc, db_valid, q_b.desc, q_b.valid, cfg,
-                            match_chunk)
+    with runtime.span("detect.match"):
+        counts = _count_matches(db_desc, db_valid, q_b.desc, q_b.valid, cfg,
+                                match_chunk)
+    with runtime.span("detect.verify"):
+        return _verify_batch(db_desc, db_valid, db_pcam, db_hdep, elig_b,
+                             q_b, counts, cfg, max_cand, generator)
+
+
+def _verify_batch(db_desc, db_valid, db_pcam, db_hdep, elig_b: Tensor,
+                  q_b: ft.Keypoints, counts: Tensor, cfg: ft.FeatureConfig,
+                  max_cand: int, generator: Optional[torch.Generator]):
+    """The top ``max_cand`` eligible slots of each query by its match
+    counts (B, cap), RANSAC-verified → ``_match_and_verify_batch``'s
+    tuple."""
     scores = torch.where(elig_b, counts, -1)
     top_scores, top_idx = torch.sort(scores, dim=1, descending=True,
                                      stable=True)
@@ -132,9 +156,11 @@ def _read_results(scores, idx, Ts, n_inls, spreads):
     into one f32 tensor (scores, slots and counts are exact in f32) →
     numpy (scores, idx, Ts, n_inls, spreads)."""
     f32 = torch.float32
-    packed = torch.cat([scores.to(f32)[..., None], idx.to(f32)[..., None],
-                        Ts, n_inls.to(f32)[..., None],
-                        spreads[..., None]], dim=-1).cpu().numpy()
+    with runtime.span("detect.read"):
+        packed = torch.cat([scores.to(f32)[..., None],
+                            idx.to(f32)[..., None], Ts,
+                            n_inls.to(f32)[..., None], spreads[..., None]],
+                           dim=-1).cpu().numpy()
     return (packed[..., 0].astype(np.int64), packed[..., 1].astype(np.int64),
             packed[..., 2:9], packed[..., 9].astype(np.int64),
             packed[..., 10])
@@ -225,6 +251,7 @@ class LoopDetector:
                     if kf.client_id == target),
                    key=lambda s: self.slots[s].t)
         self.dropped_keyframes += 1
+        runtime.count("detect.evictions")
         if self.dropped_keyframes == 1 or self.dropped_keyframes % 256 == 0:
             warnings.warn(
                 f"keyframe pool saturated ({self.cfg.max_keyframes}): "
@@ -247,8 +274,14 @@ class LoopDetector:
         if last is not None and t - last < self.cfg.keyframe_stride - 1e-9:
             return []
         self._last_kf_time[client_id] = t
-        kp = ft.detect_and_describe(self.intr, color, depth,
-                                    self.cfg.features)
+        return self._ingest_frame(client_id, t, color, depth, generator)
+
+    def _ingest_frame(self, client_id: int, t: float, color: Tensor,
+                      depth: Tensor, generator) -> List[MapFusionMsg]:
+        """One frame past the stride gate: detection, then one ingest."""
+        with runtime.span("detect.features"):
+            kp = ft.detect_and_describe(self.intr, color, depth,
+                                        self.cfg.features)
         return self.ingest_keypoints(client_id, t, kp, generator=generator)
 
     def _eligibility(self, client_id: int, t: float) -> np.ndarray:
@@ -292,23 +325,30 @@ class LoopDetector:
         frontends shipping descriptors, and capacity tests, feed here):
         one match+verify pass, one device-to-host read, one in-place
         append. ``kp`` fields (K, ...) on the detector's device."""
-        cfg = self.cfg
-        msgs: List[MapFusionMsg] = []
-        if self.n_keyframes > 0:
-            elig = self._eligibility(client_id, t)
-            if elig.any():
-                mc = min(cfg.max_candidates, cfg.max_keyframes)
-                res = _read_results(*_match_and_verify(
-                    *self._pools(), upload(elig, self.device), kp,
-                    cfg.features, mc, cfg.match_chunk,
-                    self._generator(generator)))
-                msgs = self._gate_results(client_id, t, *res)
-        slot = self._alloc_slot(client_id)
-        _db_append(*self._pools(), kp,
-                   upload(np.array([slot], np.int64), self.device))
-        self.slots[slot] = Keyframe(client_id=client_id, t=t)
-        self.total_keyframes += 1
-        return msgs
+        with runtime.span("detect.ingest"):
+            cfg = self.cfg
+            msgs: List[MapFusionMsg] = []
+            if self.n_keyframes > 0:
+                with runtime.span("detect.eligibility"):
+                    elig = self._eligibility(client_id, t)
+                    elig_d = (upload(elig, self.device) if elig.any()
+                              else None)
+                if elig_d is not None:
+                    mc = min(cfg.max_candidates, cfg.max_keyframes)
+                    res = _read_results(*_match_and_verify(
+                        *self._pools(), elig_d, kp, cfg.features, mc,
+                        cfg.match_chunk, self._generator(generator)))
+                    runtime.count("detect.candidates", mc)
+                    msgs = self._gate_results(client_id, t, *res)
+            with runtime.span("detect.append"):
+                slot = self._alloc_slot(client_id)
+                _db_append(*self._pools(), kp,
+                           upload(np.array([slot], np.int64), self.device))
+                self.slots[slot] = Keyframe(client_id=client_id, t=t)
+            self.total_keyframes += 1
+            runtime.count("detect.keyframes")
+            runtime.count("detect.closures", len(msgs))
+            return msgs
 
     def add_keyframes_batch(self, items,
                             generator: Optional[torch.Generator] = None
@@ -335,18 +375,18 @@ class LoopDetector:
             chunk, todo = todo[:B], todo[B:]
             msgs.extend(self._ingest_chunk(chunk, generator))
         for cid, t, c, d in todo:
-            kp = ft.detect_and_describe(self.intr, c, d, self.cfg.features)
-            msgs.extend(self.ingest_keypoints(cid, t, kp,
-                                              generator=generator))
+            msgs.extend(self._ingest_frame(cid, t, c, d, generator))
         return msgs
 
     def _ingest_chunk(self, chunk, generator) -> List[MapFusionMsg]:
-        colors = torch.stack([c for _, _, c, _ in chunk])
-        depths = torch.stack([d for _, _, _, d in chunk])
-        kps = ft.detect_and_describe_batch(self.intr, colors, depths,
-                                           self.cfg.features)
-        return self._ingest_keypoints_batch(
-            [(cid, t) for cid, t, _, _ in chunk], kps, generator)
+        with runtime.span("detect.features"):
+            colors = torch.stack([c for _, _, c, _ in chunk])
+            depths = torch.stack([d for _, _, _, d in chunk])
+            kps = ft.detect_and_describe_batch(self.intr, colors, depths,
+                                               self.cfg.features)
+        with runtime.span("detect.ingest"):
+            return self._ingest_keypoints_batch(
+                [(cid, t) for cid, t, _, _ in chunk], kps, generator)
 
     def _ingest_keypoints_batch(self, meta, kps: ft.Keypoints,
                                 generator) -> List[MapFusionMsg]:
@@ -363,33 +403,39 @@ class LoopDetector:
         cfg = self.cfg
         msgs: List[MapFusionMsg] = []
         if self.n_keyframes > 0:
-            elig = np.stack([self._eligibility(cid, t) for cid, t in meta])
-            if elig.any():
+            with runtime.span("detect.eligibility"):
+                elig = np.stack([self._eligibility(cid, t)
+                                 for cid, t in meta])
+                elig_d = upload(elig, self.device) if elig.any() else None
+            if elig_d is not None:
                 mc = min(cfg.max_candidates, cfg.max_keyframes)
                 scores, idx, Ts, n_inls, spreads = _read_results(
                     *_match_and_verify_batch(
-                        *self._pools(), upload(elig, self.device), kps,
-                        cfg.features, mc, cfg.match_chunk,
-                        self._generator(generator)))
+                        *self._pools(), elig_d, kps, cfg.features, mc,
+                        cfg.match_chunk, self._generator(generator)))
+                runtime.count("detect.candidates", mc * len(meta))
                 for b, (cid, t) in enumerate(meta):
                     msgs.extend(self._gate_results(
                         cid, t, scores[b], idx[b], Ts[b], n_inls[b],
                         spreads[b]))
-        slots = []
-        for cid, t in meta:
-            s = self._alloc_slot(cid)
-            self.slots[s] = Keyframe(client_id=cid, t=t)
-            self.total_keyframes += 1
-            slots.append(s)
-        # a slot taken twice (a pool smaller than the sub-batch) keeps its
-        # last member, as in the table: index_copy_ with repeated indices
-        # would leave the device's pick to chance
-        keep = sorted({s: b for b, s in enumerate(slots)}.values())
-        if len(keep) < len(slots):
-            rows = upload(np.array(keep, np.int64), self.device)
-            kps = ft.Keypoints(*(None if f is None else f[rows]
-                                 for f in kps))
-            slots = [slots[b] for b in keep]
-        _db_append_batch(*self._pools(), kps,
-                         upload(np.asarray(slots, np.int64), self.device))
+        with runtime.span("detect.append"):
+            slots = []
+            for cid, t in meta:
+                s = self._alloc_slot(cid)
+                self.slots[s] = Keyframe(client_id=cid, t=t)
+                self.total_keyframes += 1
+                slots.append(s)
+            # a slot taken twice (a pool smaller than the sub-batch) keeps
+            # its last member, as in the table: index_copy_ with repeated
+            # indices would leave the device's pick to chance
+            keep = sorted({s: b for b, s in enumerate(slots)}.values())
+            if len(keep) < len(slots):
+                rows = upload(np.array(keep, np.int64), self.device)
+                kps = ft.Keypoints(*(None if f is None else f[rows]
+                                     for f in kps))
+                slots = [slots[b] for b in keep]
+            _db_append_batch(*self._pools(), kps,
+                             upload(np.asarray(slots, np.int64), self.device))
+        runtime.count("detect.keyframes", len(meta))
+        runtime.count("detect.closures", len(msgs))
         return msgs

@@ -499,7 +499,12 @@ def _match_inputs(g, nq, cap, ka, kb, shared, device):
     (True, 2, 3, 64, 1000),              # two column chunks
     # more CTAs than SMs, as on the scoring path: the odd query count
     # leaves the last CTA one query; an endurance sub-batch of 5 queries
-    (True, 3, 140, 100, 7), (True, 5, 64, 384, 384)]
+    (True, 3, 140, 100, 7), (True, 5, 64, 384, 384),
+    # the shared detector at 1,000 keypoints: the scoring launch (rows
+    # spread over two CTAs a pair, two column chunks, best_a by global
+    # atomicMin), the same with more slots than SMs, the verify launch
+    (True, 4, 128, 1000, 1000), (True, 4, 140, 1000, 1000),
+    (False, 8, 1, 1000, 1000)]
     + [(s, 3, 4 if s else 2, ka, kb) for s in (True, False)
        for ka, kb in EDGES])
 def test_match_topk_kernel_matches_plain(gpu, shared, nq, cap, ka, kb):

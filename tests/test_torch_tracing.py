@@ -27,9 +27,11 @@ import torch
 
 from coxgraph_tpu_torch import runtime
 from coxgraph_tpu_torch.eval import demos
+from coxgraph_tpu_torch.frontends import loop_detector as ld
 from coxgraph_tpu_torch.frontends import synthetic as syn
 from coxgraph_tpu_torch.mapper import submap_mapper as sm
 from coxgraph_tpu_torch.ops import esdf as esdf_ops
+from coxgraph_tpu_torch.ops import features as ft
 from coxgraph_tpu_torch.server import fusion_server as fs
 
 CPU = torch.device("cpu")
@@ -226,6 +228,61 @@ def test_threads_add_every_span_and_count(traced):
     after = runtime.snapshot()
     assert _span_delta(before, after) == {"thread.work": 4000}
     assert _counter_delta(before, after) == {"thread.items": 4000}
+
+
+DETECT_SPANS = ("detect.ingest", "detect.features", "detect.eligibility",
+                "detect.match", "detect.verify", "detect.read",
+                "detect.append")
+
+
+def _detector_batches():
+    """A 4-slot CPU detector at 40x30 and two sub-batches of 4 noise
+    frames from two robots, the second 10 s after the first."""
+    intr = syn.PinholeIntrinsics().scaled(1 / 16)
+    cfg = ld.LoopDetectorConfig(
+        features=ft.FeatureConfig(max_keypoints=16, border=4,
+                                  ransac_iters=8),
+        keyframe_stride=0.0, max_keyframes=4, match_chunk=2)
+    g = torch.Generator().manual_seed(5)
+    H, W = intr.height, intr.width
+
+    def batch(t0):
+        return [(i % 2, t0 + i // 2, torch.rand(H, W, 3, generator=g),
+                 1.0 + torch.rand(H, W, generator=g)) for i in range(4)]
+
+    return ld.LoopDetector(intr, cfg, device=CPU), batch(0.0), batch(10.0)
+
+
+def test_detector_spans_and_counters(traced):
+    """One sub-batch against a full pool opens each detect.* span once
+    (its description, then its ingest holding the other stages) and counts
+    its keyframes, evictions, candidates and closures; with tracing off
+    nothing is recorded."""
+    det, first, second = _detector_batches()
+    runtime.tracing(False)
+    before = runtime.snapshot()
+    det.add_keyframes_batch(first)
+    assert runtime.snapshot() == before
+    assert det.n_keyframes == 4 and det.dropped_keyframes == 0
+    runtime.tracing(True)
+    before = runtime.snapshot()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        msgs = det.add_keyframes_batch(second)
+    after = runtime.snapshot()
+    assert _span_delta(before, after) == {n: 1 for n in DETECT_SPANS}
+    counters = _counter_delta(before, after)
+    assert counters.pop("detect.closures", 0) == len(msgs)
+    # every member of the sub-batch evicts: the pool was full
+    assert det.dropped_keyframes == 4
+    assert counters == {"detect.keyframes": 4,
+                        "detect.evictions": det.dropped_keyframes,
+                        "detect.candidates": 4 * det.cfg.max_candidates}
+    parents = {e.name: e.cpu_parent and e.cpu_parent.name
+               for e in prof.events() if e.name.startswith("cox.detect.")}
+    assert parents == dict(
+        {"cox.detect.ingest": None, "cox.detect.features": None},
+        **{"cox." + n: "cox.detect.ingest" for n in DETECT_SPANS[2:]})
 
 
 # ---------------------------------------------------------------------------

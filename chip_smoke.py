@@ -87,7 +87,11 @@ no result line) if anything is wrong:
                  frame), live_mesh after each window equal to
                  extract_mesh(quantize=False) of the same layer, also after
                  a live_mesh_async whose finish() was dropped; ESDF band
-                 equal to the TSDF and |dist| ≤ max_distance; a merge at
+                 equal to the TSDF and |dist| ≤ max_distance; the ESDF
+                 kernels ≡ the plain sweeps on that layer at 2 m and at
+                 client_vga's 4 m (dist's bits and observed, all rows;
+                 1 + n_iters launches a build), both timed at 4 m beside
+                 the live rows' bytes bound; a merge at
                  the identity pose into an empty doubled pool keeps every
                  live block with weights within bf16 rounding; kernel
                  launches per mesh extraction, ESDF build and merge
@@ -1083,8 +1087,66 @@ def print_top(events, kernels, top: int, host: bool = True) -> None:
                   f"{e.key[:90]}")
 
 
+def esdf_record(spec, layer, ident) -> dict:
+    """The ESDF build of phase 10's layer through its kernels
+    (``esdf_from_tsdf`` on the card) and through the plain sweeps
+    (``ops.esdf._esdf_sweeps``), same layer: at the configured 2 m and at
+    client_vga's 4 m, ``dist``'s bits and ``observed`` equal in every
+    max_blocks row, and 1 + n_iters kernel launches a build. Then at 4 m:
+    each back to back (CUDA events), the device time and launches of one
+    build (torch.profiler); the bound is each live row's 16³ f32 read and
+    written once a sweep at the HBM rate → the record of the ``kernels``
+    line."""
+    from coxgraph_tpu_torch.ops import cuda_esdf
+    from coxgraph_tpu_torch.ops import esdf as esdf_ops
+
+    v3 = spec.voxels_per_side ** 3
+    n_live = int(layer.num_blocks)
+    configs = (esdf_ops.EsdfConfig(), esdf_ops.EsdfConfig(max_distance=4.0))
+    for ecfg in configs:
+        n_iters = esdf_ops.sweep_count(spec, ecfg)
+        cuda_esdf.LAUNCHES = 0
+        e = esdf_ops.esdf_from_tsdf(spec, layer, ecfg)
+        launches = cuda_esdf.LAUNCHES
+        p = esdf_ops._esdf_sweeps(spec, layer, ecfg)
+        assert launches == 1 + n_iters, (launches, n_iters)
+        assert e.dist.shape == p.dist.shape == (layer.max_blocks, v3)
+        assert torch.equal(e.dist.view(torch.int32),
+                           p.dist.view(torch.int32)), ecfg
+        assert torch.equal(e.observed, p.observed), ecfg
+        del e, p
+    ecfg = configs[-1]
+    n_iters = esdf_ops.sweep_count(spec, ecfg)
+    runs = {"kernels": (lambda: esdf_ops.esdf_from_tsdf(spec, layer, ecfg),
+                        EVENT_REPS),
+            "plain": (lambda: esdf_ops._esdf_sweeps(spec, layer, ecfg), 5)}
+    rec = {}
+    for name, (fn, reps) in runs.items():
+        _, dev_ms, n_launch, _, _, _ = profiled(fn)
+        rec[name] = (_time_ms(fn, reps), dev_ms, n_launch)
+    assert rec["kernels"][2] == 1 + n_iters, rec["kernels"]
+    n_bytes = n_live * 2 * v3 * 4 * n_iters
+    bound, by = _bound_ms(n_bytes, 0.0, 1.0)
+    print(f"[10] ESDF kernels ≡ plain sweeps ({layer.max_blocks} blocks, "
+          f"{n_live} live, 2 m and 4 m: dist's bits, observed, all rows); "
+          f"at 4 m ({n_iters} sweeps): kernels {rec['kernels'][0]:.3f} ms "
+          f"back to back, device {rec['kernels'][1]:.3f} ms, "
+          f"{rec['kernels'][2]:g} launches; plain {rec['plain'][0]:.1f} ms "
+          f"back to back, device {rec['plain'][1]:.1f} ms, "
+          f"{rec['plain'][2]:g} launches; bound {bound:.3f} ms ({by}: "
+          f"{n_live} rows × {2 * v3 * 4} B × {n_iters}) — {ident}")
+    return dict(launches=rec["kernels"][2], ms=rec["kernels"][0],
+                device_ms=rec["kernels"][1], plain_ms=rec["plain"][0],
+                plain_device_ms=rec["plain"][1],
+                plain_launches=rec["plain"][2], bound_ms=bound, bound_by=by,
+                bound_bytes=n_bytes, live_blocks=n_live,
+                max_blocks=layer.max_blocks, sweeps=n_iters,
+                max_distance=ecfg.max_distance)
+
+
 def phase_serving(cfg, device, depths, colors, traj, ident):
-    """Phase 10 → K1's launches on the serving path."""
+    """Phase 10 → (K1's launches on the serving path, the ESDF kernels'
+    record)."""
     from coxgraph_tpu_torch.core import geometry as geo
     from coxgraph_tpu_torch.core import voxel as vx
     from coxgraph_tpu_torch.eval import benchmarks as bm
@@ -1150,6 +1212,8 @@ def phase_serving(cfg, device, depths, colors, traj, ident):
     print(f"[10] ESDF: {int(band.sum())} band voxels ≡ the TSDF, "
           f"{beyond} observed voxels beyond the band, |dist| ≤ "
           f"{ecfg.max_distance}")
+    del e
+    esdf = esdf_record(spec, layer, ident)
 
     dst_spec = dataclasses.replace(spec, max_blocks=2 * spec.max_blocks)
     dst = vx.create_tsdf_layer(dst_spec, device)
@@ -1186,11 +1250,11 @@ def phase_serving(cfg, device, depths, colors, traj, ident):
     }
     del dst
     print(f"[10] CUDA kernel launches per call (torch.profiler): {counts}")
-    del hm, layer, e
+    del hm, layer
     torch.cuda.empty_cache()
     out = bm.stage_benchmark(depths, colors, traj)
     print(f"[10] stage_benchmark {json.dumps(out)} — {ident}")
-    return launches
+    return launches, esdf
 
 
 def count_syncs(fn):
@@ -2548,7 +2612,8 @@ def main() -> None:
     n_frames = depths.shape[0]
 
     # ---- 10. serving path --------------------------------------------------
-    serve_launches = phase_serving(cfg, device, depths, colors, traj, ident)
+    serve_launches, esdf = phase_serving(cfg, device, depths, colors, traj,
+                                         ident)
     print(f"[10] K1 launches on the serving path: {serve_launches}")
     del depths, colors, traj
     torch.cuda.empty_cache()
@@ -2641,6 +2706,14 @@ def main() -> None:
         "max_abs_err": 0,
         "library_ms": None,
         **alloc,
+    }, {
+        "name": "esdf_sweep",
+        "route": "cuda",
+        "source": "coxgraph_tpu_torch/csrc/esdf_sweep.cu",
+        "replaces": None,   # no TPU kernel: the JAX package's sweeps are XLA
+        "max_abs_err": 0,
+        "library_ms": None,
+        **esdf,
     }]}))
     print(ident)
     print(json.dumps({"ok": True, "device": {

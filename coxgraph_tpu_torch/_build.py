@@ -28,7 +28,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libcoxgraph_tpu_torch.so")
 LOG_PATH = os.path.join(BUILD_DIR, "build.log")
-SOURCES = ("tsdf_update.cu", "hamming_match.cu", "tsdf_alloc.cu")
+SOURCES = ("tsdf_update.cu", "hamming_match.cu", "tsdf_alloc.cu",
+           "esdf_sweep.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false",
                               "-Xptxas", "-v", "-Xcompiler", "-fPIC")
@@ -143,6 +144,13 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
             + [I] * 8     # height, width, stride, band, gd, mb, vps, lanes
             + [F] * 10    # band lo hi step, cx cy 1/fx 1/fy min max 1/vs
             + [P],        # stream
+            I),
+        "cox_esdf_build": (
+            [P] * 10      # sdf, weight, index, coords, num_blocks, dist,
+                          # observed, tmp, band, nbr
+            + [I] * 5     # B, v, gd, n_iters, full
+            + [F] * 3     # max_distance, truncation, min weight
+            + [P, P],     # the host steps, stream
             I),
         "cox_error_string": ([I], ctypes.c_char_p),
     }

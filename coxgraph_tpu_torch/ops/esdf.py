@@ -8,6 +8,11 @@ propagate the front that many voxels. The observed TSDF band stays
 frozen. Every step is a select, min, max or add of f32 values computed
 as the reference computes them, so the result is bit-identical to the
 JAX package's.
+
+``esdf_from_tsdf`` dispatches by the layer's device: a CPU layer runs these
+plain sweeps (``_esdf_sweeps``), a CUDA layer the kernels of
+``ops.cuda_esdf`` over its live blocks, which give the same result bit for
+bit.
 """
 
 from __future__ import annotations
@@ -54,6 +59,18 @@ def _neighbor_offsets(full: bool) -> np.ndarray:
                     dtype=np.int32)
 
 
+def neighbor_steps(spec: vx.VoxelGridSpec, offs: np.ndarray) -> np.ndarray:
+    """‖Δ‖·voxel_size of each offset in f32, as the reference computes it."""
+    return (np.sqrt((offs.astype(np.float32) ** 2).sum(axis=-1,
+                                                       dtype=np.float32))
+            * np.float32(spec.voxel_size)).astype(np.float32)
+
+
+def sweep_count(spec: vx.VoxelGridSpec, cfg: EsdfConfig) -> int:
+    """ceil(max_distance / voxel_size) + extra_iters."""
+    return math.ceil(cfg.max_distance / spec.voxel_size) + cfg.extra_iters
+
+
 AXIS_OFFSETS = ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0),
                 (0, 0, 1), (0, 0, -1))
 
@@ -91,9 +108,17 @@ def axis_neighbor_field(d_src: Tensor, d_own: Tensor, face_idx, off3,
 def esdf_from_tsdf(spec: vx.VoxelGridSpec, tsdf: vx.TsdfLayer,
                    cfg: EsdfConfig = EsdfConfig()) -> EsdfLayer:
     """Batch-build the ESDF over the TSDF's allocated blocks, on the
-    layer's device, with no host read."""
+    layer's device, with no host read: the kernels of ``ops.cuda_esdf``
+    on CUDA (or a raise), the plain sweeps elsewhere."""
     with runtime.span("esdf.build"):
-        return _esdf_sweeps(spec, tsdf, cfg)
+        if tsdf.sdf.device.type == "cuda":
+            from . import cuda_esdf
+
+            out = cuda_esdf.esdf_sweeps(spec, tsdf, cfg)
+        else:
+            out = _esdf_sweeps(spec, tsdf, cfg)
+        runtime.count("esdf.sweeps", sweep_count(spec, cfg))
+        return out
 
 
 def _esdf_sweeps(spec: vx.VoxelGridSpec, tsdf: vx.TsdfLayer,
@@ -115,11 +140,8 @@ def _esdf_sweeps(spec: vx.VoxelGridSpec, tsdf: vx.TsdfLayer,
     init = torch.where(observed, init, md)
 
     offs = _neighbor_offsets(cfg.full_connectivity)
-    # ‖Δ‖·voxel_size in f32, as the reference computes it
-    step = (np.sqrt((offs.astype(np.float32) ** 2).sum(axis=-1,
-                                                       dtype=np.float32))
-            * np.float32(spec.voxel_size)).astype(np.float32)
-    n_iters = math.ceil(md / spec.voxel_size) + cfg.extra_iters
+    step = neighbor_steps(spec, offs)
+    n_iters = sweep_count(spec, cfg)
     flat_index = tsdf.block_index.reshape(-1)
     face_idx = face_neighbor_indices(spec, tsdf.block_coords, flat_index)
     offs_py = [tuple(int(c) for c in o) for o in offs.tolist()]
@@ -160,7 +182,6 @@ def _esdf_sweeps(spec: vx.VoxelGridSpec, tsdf: vx.TsdfLayer,
                             torch.maximum(d, neg_best))
         d_new = torch.where(band, init, d_new)        # band frozen
         d = torch.where(live, d_new, md)
-    runtime.count("esdf.sweeps", n_iters)
     dist = torch.clamp(d, -md, md)
     return EsdfLayer(dist=dist.reshape(B, -1),
                      observed=observed.reshape(B, -1),

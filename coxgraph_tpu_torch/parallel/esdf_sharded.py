@@ -22,7 +22,6 @@ refreshes all halos after each sweep.
 from __future__ import annotations
 
 import dataclasses
-import math
 import numpy as np
 import torch
 
@@ -169,11 +168,8 @@ def esdf_sharded(spec: vx.VoxelGridSpec, mesh: RobotMesh,
     mine = mesh.share(D)
     dev = parts.coords.device
     offs = esdf_ops._neighbor_offsets(cfg.esdf.full_connectivity)
-    # ‖Δ‖·voxel_size in f32, as ops.esdf computes it
-    step = (np.sqrt((offs.astype(np.float32) ** 2).sum(axis=-1,
-                                                       dtype=np.float32))
-            * np.float32(spec.voxel_size)).astype(np.float32)
-    n_iters = math.ceil(md / spec.voxel_size) + cfg.esdf.extra_iters
+    step = esdf_ops.neighbor_steps(spec, offs)
+    n_iters = esdf_ops.sweep_count(spec, cfg.esdf)
     offs_py = [tuple(int(c) for c in o) for o in offs.tolist()]
     ar = torch.arange(E, device=dev)
 
@@ -302,8 +298,7 @@ def ici_bytes_per_update(spec: vx.VoxelGridSpec,
     f32) once per direction per device, once at setup plus once per
     Jacobi sweep; setup additionally ships edge coords + masks."""
     v3 = spec.voxels_per_side ** 3
-    n_sweeps = math.ceil(cfg.esdf.max_distance / spec.voxel_size) \
-        + cfg.esdf.extra_iters
+    n_sweeps = esdf_ops.sweep_count(spec, cfg.esdf)
     per_refresh = 2 * cfg.halo_blocks * v3 * 4          # both directions
     setup = 2 * cfg.halo_blocks * (3 * 4 + 1)           # coords + mask
     return {

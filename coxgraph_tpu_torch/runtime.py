@@ -181,11 +181,12 @@ def count(name: str, n: int = 1) -> None:
 def snapshot() -> dict:
     """What tracing has summed so far → ``{"spans": {name: {"n",
     "total_s"}}, "counters": {name: value}}``; the counters include the
-    kernel launches ``k1.launches``, ``k2.launches`` and ``alloc.launches``
-    (``ops.cuda_tsdf.LAUNCHES``, ``ops.cuda_hamming.LAUNCHES``,
-    ``ops.cuda_alloc.LAUNCHES``, counted whether tracing is on or not).
+    kernel launches ``k1.launches``, ``k2.launches``, ``alloc.launches``
+    and ``esdf.launches`` (``ops.cuda_tsdf.LAUNCHES``,
+    ``ops.cuda_hamming.LAUNCHES``, ``ops.cuda_alloc.LAUNCHES``,
+    ``ops.cuda_esdf.LAUNCHES``, counted whether tracing is on or not).
     Difference two snapshots to read a stretch."""
-    from .ops import cuda_alloc, cuda_hamming, cuda_tsdf
+    from .ops import cuda_alloc, cuda_esdf, cuda_hamming, cuda_tsdf
 
     with _LOCK:
         spans = json.loads(_TIMERS.as_json())
@@ -193,4 +194,5 @@ def snapshot() -> dict:
     counters["k1.launches"] = cuda_tsdf.LAUNCHES
     counters["k2.launches"] = cuda_hamming.LAUNCHES
     counters["alloc.launches"] = cuda_alloc.LAUNCHES
+    counters["esdf.launches"] = cuda_esdf.LAUNCHES
     return {"spans": spans, "counters": counters}

@@ -25,8 +25,9 @@ from coxgraph_tpu_torch.core import voxel as vx
 from coxgraph_tpu_torch.frontends import loop_detector as ld
 from coxgraph_tpu_torch.frontends import synthetic as syn
 from coxgraph_tpu_torch.mapper import submap_mapper as sm
-from coxgraph_tpu_torch.ops import cuda_alloc, cuda_hamming
+from coxgraph_tpu_torch.ops import cuda_alloc, cuda_esdf, cuda_hamming
 from coxgraph_tpu_torch.ops import cuda_tsdf
+from coxgraph_tpu_torch.ops import esdf as esdf_ops
 from coxgraph_tpu_torch.ops import features as ft
 from coxgraph_tpu_torch.ops import tsdf
 
@@ -685,6 +686,140 @@ def test_serving_esdf_and_merge_on_gpu_match_cpu(gpu):
             d = (getattr(out["cuda"], name).cpu()
                  - getattr(out["cpu"], name)).abs()
             assert float(d.max()) <= 1e-4, name
+
+
+@pytest.fixture(scope="module")
+def client_vga_submap():
+    """Submap 0 of ``client_vga.serve`` after its first 300 frames, a whole
+    submap (10 s at 30 Hz), stepped as the cell's driver steps them: the
+    lap rendered with the cell's depth noise, the drifting odometry, 5 cm
+    voxels, 16³ blocks, a 64³ grid, 8,192 blocks, 640×480; the pools cut
+    to two submaps → (spec, layer)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (the kernel has no CPU mode)")
+    import copy
+
+    from slambench.harness import core
+
+    c = core.cell("client_vga.serve")
+    cfg = copy.deepcopy(c["config"])
+    cfg["mapper"]["max_submaps"] = 2
+    d = c["driver"].Driver(cfg, c["traffic"], 1, torch.device("cuda", 0))
+    d._inputs()
+    d.mapper = d.sm.HostMapper(d.mcfg, device=d.device)
+    for g in range(d.per_submap):
+        d._frame(g)
+    yield d.mcfg.spec, sm.get_layer(d.mapper.state.collection.layers, 0)
+    del d
+    torch.cuda.empty_cache()
+
+
+def _esdf_test_layer(gpu, spec, coords, n_live, seed):
+    """A layer of ``spec`` with ``coords`` allocated, seeded sdf in
+    [-0.5, 0.5] m (some -0.0) and weights (a third of the voxels
+    unobserved), then its watermark set to ``n_live``: block_index still
+    names the slots from n_live up, which are dead."""
+    layer = vx.allocate_blocks(spec, vx.create_tsdf_layer(spec, "cpu"),
+                               coords)
+    n = int(layer.num_blocks)
+    g = torch.Generator().manual_seed(seed)
+    v3 = spec.voxels_per_side ** 3
+    layer.sdf[:n] = torch.rand(n, v3, generator=g) - 0.5
+    layer.sdf[:n][torch.rand(n, v3, generator=g) < 0.01] = -0.0
+    layer.weight[:n] = torch.where(torch.rand(n, v3, generator=g) < 1 / 3,
+                                   0.0, 0.5 + torch.rand(n, v3, generator=g))
+    layer.num_blocks.fill_(n_live)
+    return vx.TsdfLayer(**{f.name: getattr(layer, f.name).to(gpu)
+                           for f in dataclasses.fields(layer)})
+
+
+def _block_cube(lo, hi):
+    r = torch.arange(lo, hi, dtype=torch.int32)
+    return torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                       -1).reshape(-1, 3)
+
+
+def _grid_shell(spec):
+    """Every block on the grid's outer faces: their outward neighbours
+    lie outside the grid."""
+    c = _block_cube(-spec.half_grid, spec.half_grid)
+    return c[((c == -spec.half_grid) | (c == spec.half_grid - 1)).any(-1)]
+
+
+ESDF_CASES = {
+    # spec (voxel, v, grid, max_blocks, truncation), blocks, live, config
+    "grid_shell": ((0.1, 8, 6, 256, 0.2), "shell", None,
+                   dict(max_distance=0.8)),              # 12 sweeps
+    "dead_neighbours": ((0.1, 8, 6, 256, 0.2), "shell", 100,
+                        dict(max_distance=0.5)),         # 9 sweeps
+    "no_live_block": ((0.1, 8, 6, 256, 0.2), "shell", 0,
+                      dict(max_distance=0.8)),
+    "pool_full": ((0.1, 4, 16, 64, 0.2), "cube", None,
+                  dict(max_distance=0.1, extra_iters=0)),    # 1 sweep
+    "no_sweep": ((0.1, 5, 8, 64, 0.2), "cube", None,
+                 dict(max_distance=0.3, extra_iters=-3)),
+}
+
+
+def _esdf_kernels_vs_plain(spec, layer, ecfg):
+    """esdf_from_tsdf on the card (the kernels, 1 + n_iters launches, no
+    host sync) ≡ the plain sweeps on the card, dist's bits and observed,
+    every max_blocks row."""
+    n_iters = esdf_ops.sweep_count(spec, ecfg)
+    before = cuda_esdf.LAUNCHES
+    e = _no_sync(lambda: esdf_ops.esdf_from_tsdf(spec, layer, ecfg))
+    assert cuda_esdf.LAUNCHES - before == 1 + n_iters
+    plain = esdf_ops._esdf_sweeps(spec, layer, ecfg)
+    torch.cuda.synchronize()
+    assert e.dist.shape == plain.dist.shape == (layer.max_blocks,
+                                                 spec.voxels_per_side ** 3)
+    assert torch.equal(e.dist.view(torch.int32), plain.dist.view(torch.int32))
+    assert torch.equal(e.observed, plain.observed)
+    return e
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("case", list(ESDF_CASES))
+def test_esdf_kernels_match_plain(gpu, case, full):
+    """The ESDF kernels ≡ the plain sweeps on the card, both
+    connectivities: live blocks on the grid's outer faces; the same with
+    the watermark cut to 100 of 152 blocks (neighbours at dead slots); no
+    live block; a pool filled to max_blocks at 4³ blocks (fewer threads a
+    CTA than neighbour slots) and one sweep; 5³ blocks and no sweep."""
+    (vs, v, g, mb, tr), blocks, live, kw = ESDF_CASES[case]
+    spec = vx.VoxelGridSpec(voxel_size=vs, voxels_per_side=v, grid_dim=g,
+                            max_blocks=mb, truncation=tr)
+    coords = _grid_shell(spec) if blocks == "shell" else _block_cube(-2, 2)
+    layer = _esdf_test_layer(gpu, spec, coords,
+                             len(coords) if live is None else live, seed=v)
+    if case == "pool_full":
+        assert len(coords) == mb
+    e = _esdf_kernels_vs_plain(
+        spec, layer, esdf_ops.EsdfConfig(full_connectivity=full, **kw))
+    n = int(layer.num_blocks)
+    if n:
+        assert bool(e.observed[:n].any())
+    assert not bool(e.observed[n:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("full", [False, True])
+def test_esdf_kernels_match_plain_at_client_vga(gpu, client_vga_submap,
+                                                full):
+    """client_vga's ESDF (8,192 × 16³, 4 m, 84 sweeps) of a submap of the
+    cell's traffic (~800 live blocks, as a serve builds it) ≡ the plain
+    sweeps, its band keeps the TSDF, and distances grow past it."""
+    spec, layer = client_vga_submap
+    n = int(layer.num_blocks)
+    assert spec.max_blocks == 8192 and n >= 700, n
+    ecfg = esdf_ops.EsdfConfig(max_distance=4.0, full_connectivity=full)
+    e = _esdf_kernels_vs_plain(spec, layer, ecfg)
+    band = e.observed & (layer.sdf.abs() < spec.truncation)
+    assert torch.equal(e.dist[band], layer.sdf[band])
+    # the sweeps carry the distance across the observed voxels of the
+    # allocated band, which reach ~0.6 m from the surface
+    assert float(e.dist[:n][e.observed[:n]].max()) > 2 * spec.truncation
 
 
 @pytest.mark.cuda

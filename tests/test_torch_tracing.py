@@ -206,6 +206,35 @@ def test_mapper_and_serving_spans_nest_and_count(traced):
     assert parents["cox.esdf.build"] == {None}
 
 
+@pytest.mark.parametrize("full", [False, True])
+def test_cpu_esdf_build_runs_the_plain_sweeps(traced, monkeypatch, full):
+    """On the CPU esdf_from_tsdf is the plain sweeps, bit for bit, inside
+    one esdf.build span: no kernel is built or launched (esdf.launches
+    unchanged) and esdf.sweeps counts ceil(max_distance / voxel) + extra
+    sweeps."""
+    from coxgraph_tpu_torch import _build
+
+    def refuse():
+        raise AssertionError("a CPU build loaded the kernels")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    cfg, _ = demos.small_world_configs()
+    hm, _, _ = _map(CPU)
+    layer = sm.get_layer(hm.state.collection.layers, 0)
+    ecfg = esdf_ops.EsdfConfig(max_distance=0.4, full_connectivity=full)
+    before = runtime.snapshot()
+    e = esdf_ops.esdf_from_tsdf(cfg.spec, layer, ecfg)
+    after = runtime.snapshot()
+    plain = esdf_ops._esdf_sweeps(cfg.spec, layer, ecfg)
+    assert torch.equal(e.dist.view(torch.int32), plain.dist.view(torch.int32))
+    assert torch.equal(e.observed, plain.observed)
+    assert _span_delta(before, after) == {"esdf.build": 1}
+    sweeps = math.ceil(0.4 / cfg.spec.voxel_size) + 4
+    assert _counter_delta(before, after) == {"esdf.sweeps": sweeps}
+    assert after["counters"]["esdf.launches"] \
+        == before["counters"]["esdf.launches"]
+
+
 def test_threads_add_every_span_and_count(traced):
     before = runtime.snapshot()
 

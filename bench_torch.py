@@ -37,7 +37,6 @@ import torch
 
 from coxgraph_tpu_torch import runtime
 from coxgraph_tpu_torch.eval import benchmarks as bm
-from coxgraph_tpu_torch.ops import cuda_tsdf
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(REPO, ".bench_cpu_baseline_torch.json")
@@ -110,11 +109,11 @@ def run(device, frames: int = bm.N_FRAMES, solve: bool = True,
     log = sys.stderr
     depths, colors, traj = bm.generate_frames(device, frames)
 
-    cuda_tsdf.LAUNCHES = 0
+    k1 = runtime.launches("k1")
     fps = bm.tsdf_benchmark(depths, colors, traj, n_frames=frames)
     print(f"# tsdf_integration_fps {fps:.2f} on {device}: one warm "
           f"window, then 4 timed windows x {frames} frames, one fence; K1 "
-          f"launches {cuda_tsdf.LAUNCHES}", file=log)
+          f"launches {runtime.launches("k1") - k1}", file=log)
 
     extra = bm.stage_benchmark(depths, colors, traj)
     print(f"# stages: {json.dumps(extra)}", file=log)

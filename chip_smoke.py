@@ -549,13 +549,13 @@ def phase_main_path(cfg, device, depths, colors, traj):
     from coxgraph_tpu_torch.core import voxel as vx
     from coxgraph_tpu_torch.frontends import synthetic as syn
     from coxgraph_tpu_torch.mapper import submap_mapper as sm
-    from coxgraph_tpu_torch.ops import cuda_alloc, cuda_tsdf
+    from coxgraph_tpu_torch.ops import cuda_alloc
 
     n = depths.shape[0]
     hm = sm.HostMapper(cfg, device=device)
     ts = np.arange(n, dtype=np.float64) * 0.05
     torch.cuda.synchronize()
-    cuda_tsdf.LAUNCHES = cuda_alloc.LAUNCHES = 0
+    since = launches_since()
     t0 = time.perf_counter()
     # no device→host sync may happen on the per-frame path
     torch.cuda.set_sync_debug_mode("error")
@@ -565,7 +565,7 @@ def phase_main_path(cfg, device, depths, colors, traj):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = cuda_tsdf.LAUNCHES
+    launches = since("k1")
     st = hm.state
     col = st.collection
     nb = col.layers.num_blocks.cpu().numpy()
@@ -575,7 +575,7 @@ def phase_main_path(cfg, device, depths, colors, traj):
           f"submaps started {started}, launches {launches}, num_blocks "
           f"{nb.tolist()}, weight checksum {checksum:.6g}, mesh_dirty[0] "
           f"{dirty}, union_watermark {int(st.union_watermark)}")
-    alloc_launches = cuda_alloc.LAUNCHES
+    alloc_launches = since("alloc")
     assert started == 1 and hm.n_submaps == 1
     assert launches == n, launches
     assert alloc_launches == 2 * n, alloc_launches
@@ -911,7 +911,6 @@ def phase_loop_detection(device, ident):
     from coxgraph_tpu_torch.core import geometry as geo
     from coxgraph_tpu_torch.eval import benchmarks as bm
     from coxgraph_tpu_torch.frontends import loop_detector as ld
-    from coxgraph_tpu_torch.ops import cuda_hamming
 
     cfg = bm.detector_config()
     t0 = time.perf_counter()
@@ -924,11 +923,11 @@ def phase_loop_detection(device, ident):
 
     det = ld.LoopDetector(intr, cfg, device=device)
     syncs = []
-    cuda_hamming.LAUNCHES = 0
+    since = launches_since()
     t0 = time.perf_counter()
     msgs, sub_ms = _ingest_two_robots(det, frames, syncs)
     wall = time.perf_counter() - t0
-    launches = cuda_hamming.LAUNCHES
+    launches = since("k2")
     pairs = sorted({(m.from_client, m.from_time, m.to_client, m.to_time)
                     for m in msgs})
     errs = []
@@ -1097,7 +1096,6 @@ def esdf_record(spec, layer, ident) -> dict:
     build (torch.profiler); the bound is each live row's 16³ f32 read and
     written once a sweep at the HBM rate → the record of the ``kernels``
     line."""
-    from coxgraph_tpu_torch.ops import cuda_esdf
     from coxgraph_tpu_torch.ops import esdf as esdf_ops
 
     v3 = spec.voxels_per_side ** 3
@@ -1105,9 +1103,9 @@ def esdf_record(spec, layer, ident) -> dict:
     configs = (esdf_ops.EsdfConfig(), esdf_ops.EsdfConfig(max_distance=4.0))
     for ecfg in configs:
         n_iters = esdf_ops.sweep_count(spec, ecfg)
-        cuda_esdf.LAUNCHES = 0
+        since = launches_since()
         e = esdf_ops.esdf_from_tsdf(spec, layer, ecfg)
-        launches = cuda_esdf.LAUNCHES
+        launches = since("esdf")
         p = esdf_ops._esdf_sweeps(spec, layer, ecfg)
         assert launches == 1 + n_iters, (launches, n_iters)
         assert e.dist.shape == p.dist.shape == (layer.max_blocks, v3)
@@ -1151,7 +1149,6 @@ def phase_serving(cfg, device, depths, colors, traj, ident):
     from coxgraph_tpu_torch.core import voxel as vx
     from coxgraph_tpu_torch.eval import benchmarks as bm
     from coxgraph_tpu_torch.mapper import submap_mapper as sm
-    from coxgraph_tpu_torch.ops import cuda_tsdf
     from coxgraph_tpu_torch.ops import esdf as esdf_ops
     from coxgraph_tpu_torch.ops import merge as merge_ops
     from coxgraph_tpu_torch.ops import mesh as mesh_ops
@@ -1187,7 +1184,7 @@ def phase_serving(cfg, device, depths, colors, traj, ident):
               f"capacity growths {m.capacity_growths})")
 
     torch.cuda.synchronize()
-    cuda_tsdf.LAUNCHES = 0
+    since = launches_since()
     window(0)
     live_equals_full("window 1")
     window(1)
@@ -1195,7 +1192,7 @@ def phase_serving(cfg, device, depths, colors, traj, ident):
     window(2)
     hm.live_mesh_async(quantize=False)          # finish() never runs
     window(3)
-    launches = cuda_tsdf.LAUNCHES
+    launches = since("k1")
     live_equals_full("window 4, after a dropped finish()")
     assert launches == n, launches
 
@@ -1255,6 +1252,16 @@ def phase_serving(cfg, device, depths, colors, traj, ident):
     out = bm.stage_benchmark(depths, colors, traj)
     print(f"[10] stage_benchmark {json.dumps(out)} — {ident}")
     return launches, esdf
+
+
+def launches_since():
+    """A reading of every kernel's launch count in ``runtime`` → a function
+    of a kernel's name giving its launches since the reading."""
+    from coxgraph_tpu_torch import runtime
+
+    start = runtime.snapshot()["counters"]
+    return lambda name: (runtime.launches(name)
+                         - start.get(name + ".launches", 0))
 
 
 def count_syncs(fn):
@@ -1577,7 +1584,6 @@ def phase_two_robot(device, ident):
     demo's server (phase 14 meshes it once more)."""
     from coxgraph_tpu_torch.eval import demos
     from coxgraph_tpu_torch.frontends import synthetic as syn
-    from coxgraph_tpu_torch.ops import cuda_hamming, cuda_tsdf
     from coxgraph_tpu_torch.server import fusion_server as fs
     from coxgraph_tpu_torch.utils.tensorops import upload
 
@@ -1588,10 +1594,9 @@ def phase_two_robot(device, ident):
     mem0 = torch.cuda.memory_allocated()
     demo = demos.TwoRobotDemo(device)
     server = demo.server
-    cuda_tsdf.LAUNCHES = 0
-    cuda_hamming.LAUNCHES = 0
+    since = launches_since()
     res = demo.stream()
-    k1, k2 = cuda_tsdf.LAUNCHES, cuda_hamming.LAUNCHES
+    k1, k2 = since("k1"), since("k2")
     frames = sum(int(c.state.frame_count) for c in demo.clients)
     walls = res["solve_walls"]
     print(f"[12] streamed {res['frames']} frames in {res['stream_s']:.2f} s "
@@ -1694,7 +1699,6 @@ def phase_distributed(device, ident):
     from coxgraph_tpu_torch.frontends import replay
     from coxgraph_tpu_torch.frontends import synthetic as syn
     from coxgraph_tpu_torch.mapper import submap_mapper as sm
-    from coxgraph_tpu_torch.ops import cuda_tsdf
     from coxgraph_tpu_torch.ops import points as pts_ops
     from coxgraph_tpu_torch.utils.tensorops import upload
 
@@ -1703,9 +1707,9 @@ def phase_distributed(device, ident):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
-    cuda_tsdf.LAUNCHES = 0
+    since = launches_since()
     res = demos.distributed_demo(device)
-    k1_parent = cuda_tsdf.LAUNCHES
+    k1_parent = since("k1")
     robots = res["robots"]
     for cid, r in enumerate(robots):
         print(f"[13] robot process {cid}: {r['frames']} frames at "
@@ -1903,7 +1907,6 @@ def phase_parallel(device, ident, server):
     from coxgraph_tpu_torch.eval import dryrun
     from coxgraph_tpu_torch.frontends import synthetic as syn
     from coxgraph_tpu_torch.mapper import submap_mapper as sm
-    from coxgraph_tpu_torch.ops import cuda_tsdf
     from coxgraph_tpu_torch.ops import esdf as esdf_ops
     from coxgraph_tpu_torch.ops import merge as merge_ops
     from coxgraph_tpu_torch.ops import mesh as mesh_ops
@@ -1948,14 +1951,14 @@ def phase_parallel(device, ident, server):
             st.collection.layers.sdf, st.collection.layers.weight,
             st.collection.layers.color)) for st in fleet.states) / 1e9
         torch.cuda.synchronize()
-        cuda_tsdf.LAUNCHES = 0
+        since = launches_since()
         t0 = time.perf_counter()
         no_sync(lambda: [fl.fleet_step(cfg, mesh, fleet, depths[f],
                                        colors[f], traj[f], ts[f])
                          for f in range(F)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        fleet_launches = cuda_tsdf.LAUNCHES
+        fleet_launches = since("k1")
         nsub = [int(st.collection.num_submaps) for st in fleet.states]
         nblk = [st.collection.layers.num_blocks.tolist()
                 for st in fleet.states]
@@ -2191,14 +2194,13 @@ def phase_drivers(device, ident):
     max |Δ| against its twin)."""
     from coxgraph_tpu_torch.eval import demos
     from coxgraph_tpu_torch.eval import endurance as en
-    from coxgraph_tpu_torch.ops import cuda_hamming, cuda_tsdf
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    cuda_tsdf.LAUNCHES = 0
+    since = launches_since()
     demo = demos.single_robot_demo(device)
-    demo_k1 = cuda_tsdf.LAUNCHES
+    demo_k1 = since("k1")
     print(f"[15] single-robot demo: {demo['frames']} frames → "
           f"{demo['submaps']} submaps in {demo['integrate_s']:.2f} s "
           f"({demo['fps']:.2f} frames/s, a fence each render and step); ATE "
@@ -2219,10 +2221,9 @@ def phase_drivers(device, ident):
             frames.append((0, depth, color.permute(2, 0, 1).contiguous(),
                            torch.from_numpy(mission.gt[0][f]).to(device)))
         k1_err, _ = k1_against_twin(mission.cfg, device, frames, "15")
-        cuda_tsdf.LAUNCHES = 0
-        cuda_hamming.LAUNCHES = 0
+        since = launches_since()
         art = mission.run(log=lambda line: print("[15] " + line))
-        k1, k2 = cuda_tsdf.LAUNCHES, cuda_hamming.LAUNCHES
+        k1, k2 = since("k1"), since("k2")
     finally:
         mission.close()
     st = art["stage_wall_s"]
@@ -2452,17 +2453,15 @@ def phase_replay(device, ident):
     (K1 launches, K2 launches, K1's max |Δ|, K2's record at the scoring
     launch)."""
     from coxgraph_tpu_torch.eval import demos
-    from coxgraph_tpu_torch.ops import cuda_hamming, cuda_tsdf
 
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    cuda_tsdf.LAUNCHES = 0
-    cuda_hamming.LAUNCHES = 0
+    since = launches_since()
     t0 = time.perf_counter()
     tiny = demos.tum_pipeline(os.path.join(FIXTURES, "tum_tiny"), device)
     tiny_s = time.perf_counter() - t0
-    k1, k2 = cuda_tsdf.LAUNCHES, cuda_hamming.LAUNCHES
+    k1, k2 = since("k1"), since("k2")
     print(f"[17] tum_tiny: {tiny['frames']} frames → {tiny['submaps']} "
           f"submaps, ATE {tiny['ate']:.3e} m, {tiny['vertices']} mesh "
           f"vertices, surface q90 {tiny['surf_q90'] * 100:.3f} cm; decode "
@@ -2475,13 +2474,12 @@ def phase_replay(device, ident):
     k1_all, k2_all = k1, 0
     runs = {}
     for point in ("tum_loop", "tum_real"):
-        cuda_tsdf.LAUNCHES = 0
-        cuda_hamming.LAUNCHES = 0
+        since = launches_since()
         t0 = time.perf_counter()
         r = demos.drift_correction(os.path.join(FIXTURES, point), point,
                                    device)
         wall = time.perf_counter() - t0
-        k1, k2 = cuda_tsdf.LAUNCHES, cuda_hamming.LAUNCHES
+        k1, k2 = since("k1"), since("k2")
         t0 = time.perf_counter()
         syncs = replay_syncs(point, device, r)
         print(f"[17] {_replay_line(r, syncs, ident)}; {wall:.2f} s (the "

@@ -12,6 +12,12 @@ Flags: ``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into fused
 multiply-adds, so the kernels round exactly as their torch twins do;
 ``--use_fast_math`` is never used. ``-Xptxas -v`` reports registers and
 spills into ``csrc/build/build.log``.
+
+Every C entry point is an ``EntryPoint`` declared in the wrapper module
+that passes its arguments (``ops.cuda_*``): its symbol, its argument
+types, and the name its launches are counted under in ``runtime``. A new
+kernel touches only its ``.cu`` file, its wrapper, one entry in
+``SOURCES`` and its tests.
 """
 
 from __future__ import annotations
@@ -22,6 +28,11 @@ import os
 import shutil
 import subprocess
 import time
+from typing import Optional
+
+import torch
+
+from . import runtime
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -110,52 +121,36 @@ def build() -> str:
 
 
 def load() -> ctypes.CDLL:
-    """Build if needed, load once per process, and declare every entry
-    point's argument and result types."""
+    """Build if needed and load once per process."""
     global _lib
-    if _lib is not None:
-        return _lib
-    _lib = declare(ctypes.CDLL(build()))
+    if _lib is None:
+        _lib = ctypes.CDLL(build())
     return _lib
 
 
-def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Set the argument and result types of the entry points that ``lib``
-    holds (this library, or a build of an edited copy of one source)
-    → ``lib``."""
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    entry_points = {
-        "cox_tsdf_update_blocks": (
-            [P] * 10      # pools, coords, k, slots, mask, depth, color, T
-            + [I] * 6     # n_lanes, mb, vps, vec, height, width
-            + [F] * 11    # fx fy cx cy min max tau 1/(tau/2) max_w vs bs
-            + [I, I, P],  # use_dropoff, use_distance_weight, stream
-            I),
-        "cox_hamming_topk": (
-            [P] * 8       # a, a_valid, b, b_valid, d1, i1, d2, best_a
-            + [I] * 7     # n_q, cap, ka, kb, b_batched, big, excl
-            + [P],        # stream
-            I),
-        "cox_tsdf_alloc": (
-            [P] * 3       # depth, T, marks
-            + [ctypes.c_int64]   # the bytes of marks
-            + [P] * 7     # index, coords, num_blocks, k, slots, mask,
-                          # touched
-            + [I] * 8     # height, width, stride, band, gd, mb, vps, lanes
-            + [F] * 10    # band lo hi step, cx cy 1/fx 1/fy min max 1/vs
-            + [P],        # stream
-            I),
-        "cox_esdf_build": (
-            [P] * 10      # sdf, weight, index, coords, num_blocks, dist,
-                          # observed, tmp, band, nbr
-            + [I] * 5     # B, v, gd, n_iters, full
-            + [F] * 3     # max_distance, truncation, min weight
-            + [P, P],     # the host steps, stream
-            I),
-        "cox_error_string": ([I], ctypes.c_char_p),
-    }
-    for name, (argtypes, restype) in entry_points.items():
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes, fn.restype = argtypes, restype
-    return lib
+class EntryPoint:
+    """One C entry point: ``symbol``, returning 0 or an error code that
+    ``cox_error_string`` names, with ``argtypes`` and then the CUDA stream.
+    Declaring one declares its launch count ``name`` in ``runtime``."""
+
+    def __init__(self, name: str, symbol: str, argtypes):
+        self.name, self.symbol = name, symbol
+        self.argtypes = (*argtypes, ctypes.c_void_p)
+        runtime.add_launches(name, 0)
+
+    def __call__(self, device, *args, launches: int = 1,
+                 lib: Optional[ctypes.CDLL] = None) -> None:
+        """Launch on ``device``'s current stream, operands unchecked (the
+        wrapper checks them), then add ``launches`` to the count. ``lib``:
+        this library unless a build of an edited source is given."""
+        lib = load() if lib is None else lib
+        fn = getattr(lib, self.symbol)
+        if fn.argtypes is None:
+            fn.argtypes = self.argtypes
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            text = lib.cox_error_string
+            text.argtypes, text.restype = (ctypes.c_int,), ctypes.c_char_p
+            raise RuntimeError(f"{self.symbol} launch failed: "
+                               + text(err).decode())
+        runtime.add_launches(self.name, launches)

@@ -367,7 +367,6 @@ def _robot_main(port: int, client_id: int, frames: int, device_name: str,
     from ..comm import wire
     from ..frontends import replay
     from ..mapper.map_server import MapServer
-    from ..ops import cuda_tsdf
 
     device = (runtime.require_cuda() if device_name == "cuda"
               else torch.device(device_name))
@@ -383,7 +382,7 @@ def _robot_main(port: int, client_id: int, frames: int, device_name: str,
     svc = cbus.ClientService(port, robot, cfg.spec)
     ctl = cbus.BusClient(port)
     ctl.advertise(f"client{client_id}/demo")
-    cuda_tsdf.LAUNCHES = 0
+    k1 = runtime.launches("k1")
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
     done, t_first, t_last = 0, None, None
@@ -397,7 +396,7 @@ def _robot_main(port: int, client_id: int, frames: int, device_name: str,
                     sm.get_layer(robot.state.collection.layers, k))
             return pickle.dumps((coords, sdf, w), protocol=4)
         return pickle.dumps({
-            "frames": done, "k1_launches": cuda_tsdf.LAUNCHES,
+            "frames": done, "k1_launches": runtime.launches("k1") - k1,
             "fps": (done / (t_last - t_first)
                     if t_last is not None else None),
             "n_submaps": mapper.n_submaps, "meshes": meshes,
@@ -502,7 +501,6 @@ def _recover_all(server, cfg, device, keys, trajs):
     voxels per method, the message < 0.5 × the submap's voxel wire, and
     on the card K1 once per keyframe for "projective")."""
     from ..comm import mesh_comm, wire
-    from ..ops import cuda_tsdf
     from ..ops import mesh as mesh_ops
 
     spec = cfg.spec
@@ -521,7 +519,7 @@ def _recover_all(server, cfg, device, keys, trajs):
         T_w_sm = trajs[cid][int(round(msg.t0 / DT))]
         for method in ("projective", "merged"):
             _fence(device)
-            k1 = cuda_tsdf.LAUNCHES
+            k1 = runtime.launches("k1")
             t0 = time.perf_counter()
             layer = mesh_comm.recover_layer(
                 spec, cfg.integrator, cfg.intrinsics, msg, method=method,
@@ -529,7 +527,8 @@ def _recover_all(server, cfg, device, keys, trajs):
             _fence(device)
             row[f"{method}_ms"] = 1e3 * (time.perf_counter() - t0)
             if method == "projective" and device.type == "cuda":
-                row["k1_per_keyframe"] = cuda_tsdf.LAUNCHES - k1 == n_kf
+                row["k1_per_keyframe"] = (runtime.launches("k1") - k1
+                                          == n_kf)
             v, _ = mesh_ops.extract_mesh(spec, layer, min_weight=1e-4)
             sdf = syn.scene_sdf(scene, upload(geo.transform_points_np(
                 T_w_sm, v.reshape(-1, 3)).astype(np.float32), device))
@@ -1108,12 +1107,10 @@ def map_drifted(rp, drifted, cfg: sm.MapperConfig,
     without a detector, for routing closures made elsewhere. ``stats``:
     frames, keyframes, host seconds stepping and detecting (a fence after
     each call), K1 and K2 launches."""
-    from ..ops import cuda_hamming, cuda_tsdf
-
     mapper = sm.HostMapper(cfg, device=device)
     det = (None if det_cfg is None
            else ld.LoopDetector(cfg.intrinsics, det_cfg, device))
-    k1, k2 = cuda_tsdf.LAUNCHES, cuda_hamming.LAUNCHES
+    k1, k2 = runtime.launches("k1"), runtime.launches("k2")
     closures, n, step_s, detect_s = [], 0, 0.0, 0.0
     for f, T in zip(rp, drifted):
         t0 = time.perf_counter()
@@ -1131,8 +1128,8 @@ def map_drifted(rp, drifted, cfg: sm.MapperConfig,
     return mapper, det, closures, {
         "frames": n, "keyframes": 0 if det is None else det.total_keyframes,
         "step_s": step_s, "detect_s": detect_s,
-        "k1_launches": cuda_tsdf.LAUNCHES - k1,
-        "k2_launches": cuda_hamming.LAUNCHES - k2}
+        "k1_launches": runtime.launches("k1") - k1,
+        "k2_launches": runtime.launches("k2") - k2}
 
 
 def intra_client_server(cfg: sm.MapperConfig, mapper: sm.HostMapper,

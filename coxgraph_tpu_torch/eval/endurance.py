@@ -226,7 +226,6 @@ class EnduranceMission:
             # the client serves timelines, handles and poses from the
             # mapper's host mirror (no device read on the fusion path)
             c.mapper = m
-            m.stats_check_windows = 8
         self.server = fs.CoxgraphServer(server_cfg, self.clients,
                                         self.device)
         self.detector = ld.LoopDetector(cfg.intrinsics, det_cfg, self.device)
@@ -237,7 +236,7 @@ class EnduranceMission:
         self.stage = {"integrate": 0.0, "live_mesh": 0.0,
                       "live_mesh_lock_wait": 0.0, "local_pgo": 0.0,
                       "detect": 0.0, "fuse": 0.0}
-        self.counts = {"cand": 0, "fused": 0, "kf": 0}
+        self.counts = {"cand": 0, "fused": 0, "kf": 0, "windows": 0}
         self.serve_counts = {"updates": 0}
         self.errors: list = []          # the detector's and serving's
         self.kf_queue_max = 0
@@ -363,6 +362,7 @@ class EnduranceMission:
                 self.mappers[r].state = self.clients[r].state
                 self.mappers[r].step_batch(dw, cw, self.odom[r][osl], ts)
                 self.clients[r].state = self.mappers[r].state
+        self.counts["windows"] += 1
         self.stage["integrate"] += time.perf_counter() - t0
         # deferred local solves of forwarded closures; their pose deltas
         # are not published to the server (its chains stay raw odometry)
@@ -510,7 +510,7 @@ class EnduranceMission:
                        else "cpu"),
             "optimize_errors": list(server.optimize_errors) + self.errors,
             "wire_bandwidth": self._wire_stage(),
-            "mapper_windows": [m._windows_done for m in self.mappers],
+            "mapper_windows": [self.counts["windows"]] * len(self.mappers),
             "integrated_frames": [int(c.state.frame_count)
                                   for c in self.clients],
             "threads_joined": threads_joined,

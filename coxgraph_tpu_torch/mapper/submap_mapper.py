@@ -102,8 +102,8 @@ class MapperState:
     heights: pg.HeightConstraints        # absolute z priors
     frame_count: Tensor                  # () int32
     # largest touched-block union of any integrate_batch window, and the
-    # running count of block updates dropped for lack of working-set room
-    # (always 0 on the GPU path, which has no union cap)
+    # JAX package's count of block updates dropped for lack of TPU
+    # working-set room (0: the card has no union cap)
     union_watermark: Tensor              # () int32
     dropped_union_blocks: Tensor         # () int32
     # per-submap updated-block bits (voxblox Block::updated(mesh)):
@@ -230,28 +230,28 @@ def _append_history(cfg: MapperConfig, col: SubmapCollection, k: Tensor,
 
 def _integrate_frames(cfg: MapperConfig, state: MapperState,
                       depths: Tensor, colors: Optional[Tensor],
-                      T_odom_cams: Tensor, ts: Tensor):
-    """Shared body of integrate / integrate_batch (IN PLACE) →
-    (n_union, n_dropped) of the window."""
+                      T_odom_cams: Tensor, ts: Tensor) -> Tensor:
+    """Shared body of integrate / integrate_batch (IN PLACE) → the
+    window's (max_blocks,) bool bitmap of updated slots."""
     col = state.collection
     k = col.active
     T_sm_cams = geo.relative(_row(col.T_odom_submap, k)[None], T_odom_cams)
-    _, (n_union, n_dropped, touched) = tsdf_ops.integrate_window_stacked_impl(
+    touched = tsdf_ops.integrate_window_stacked_impl(
         cfg.spec, cfg.integrator, cfg.intrinsics, col.layers, k, depths,
-        colors, T_sm_cams, return_stats=True)
+        colors, T_sm_cams)
     _append_history(cfg, col, k, T_sm_cams, ts.to(torch.float32))
     state.frame_count += depths.shape[0]
     kk = k.reshape(1).long()
     state.mesh_dirty.index_copy_(
         0, kk, state.mesh_dirty.index_select(0, kk) | touched[None])
-    return n_union, n_dropped
+    return touched
 
 
 def integrate(cfg: MapperConfig, state: MapperState, depth: Tensor,
               color: Optional[Tensor], T_odom_cam: Tensor,
               t: Tensor) -> MapperState:
     """Integrate one RGB-D frame into the active submap and append to its
-    pose history, IN PLACE. (The window counters are integrate_batch's.)"""
+    pose history, IN PLACE. (The union watermark is integrate_batch's.)"""
     _integrate_frames(cfg, state, depth[None],
                       None if color is None else color[None],
                       T_odom_cam[None], t.reshape(1))
@@ -263,16 +263,15 @@ def integrate_batch(cfg: MapperConfig, state: MapperState, depths: Tensor,
                     ts: Tensor) -> MapperState:
     """Integrate a window of F frames into the CURRENT active submap, IN
     PLACE; equal to F sequential ``integrate`` calls, plus the window's
-    union counters. Submap rollover is the caller's (HostMapper splits
-    windows at rollover times).
+    touched-slot union raising ``union_watermark``. Submap rollover is the
+    caller's (HostMapper splits windows at rollover times).
 
     depths (F,H,W) f32; colors (F,H,W,3) | (F,3,H,W) | None; T_odom_cams
     (F,7); ts (F,) f32 — all on the state's device. Issues no
     device-to-host read."""
-    n_union, n_dropped = _integrate_frames(cfg, state, depths, colors,
-                                           T_odom_cams, ts)
-    torch.maximum(state.union_watermark, n_union, out=state.union_watermark)
-    state.dropped_union_blocks += n_dropped
+    touched = _integrate_frames(cfg, state, depths, colors, T_odom_cams, ts)
+    torch.maximum(state.union_watermark, touched.sum(dtype=torch.int32),
+                  out=state.union_watermark)
     return state
 
 
@@ -359,14 +358,6 @@ class HostMapper:
         # rollovers refused because the submap pool was full — frames keep
         # integrating into the LAST submap (warn-and-count)
         self.dropped_submaps = 0
-        # deferred window-overflow check: step_batch schedules an async
-        # host copy of the union counters after each window and consumes
-        # it at the next call, so no window waits on a readback
-        self._pending_stats = None
-        self._warned_dropped = 0
-        # schedule/consume the union counters every Nth window (0 = never)
-        self.stats_check_windows = 1
-        self._windows_done = 0
         # HOST MIRROR of the timeline, submap-frame pose histories and
         # submap poses, kept from host inputs with no device readback.
         # Only valid when it observed every submap from creation.
@@ -460,49 +451,12 @@ class HostMapper:
             RuntimeWarning, stacklevel=stacklevel)
         return True
 
-    def _warn_overflow(self, wm: int, dropped: int) -> None:
-        if dropped > self._warned_dropped:
-            warnings.warn(
-                f"window working set overflowed: {dropped} block-updates "
-                f"dropped (union watermark {wm} > capacity "
-                f"{self.cfg.integrator.window_union_blocks}) — raise "
-                "TsdfIntegratorConfig.window_union_blocks to at least the "
-                "watermark", RuntimeWarning, stacklevel=3)
-            self._warned_dropped = dropped
-
-    def _consume_pending_stats(self) -> None:
-        """Read the PREVIOUS window's counters (their async copy has
-        landed by now) and warn on new drops."""
-        if self._pending_stats is None:
-            return
-        with runtime.span("mapper.stats"):
-            host, event = self._pending_stats
-            self._pending_stats = None
-            if event is not None:
-                event.synchronize()
-            self._warn_overflow(int(host[0]), int(host[1]))
-
-    def _schedule_stats_check(self) -> None:
-        with runtime.span("mapper.stats"):
-            pair = torch.stack([self.state.union_watermark,
-                                self.state.dropped_union_blocks])
-            if pair.is_cuda:
-                host = torch.empty(2, dtype=pair.dtype, pin_memory=True)
-                host.copy_(pair, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-            else:
-                host, event = pair.clone(), None
-            self._pending_stats = (host, event)
-
     def union_saturation(self) -> Tuple[int, int]:
-        """Host readback of (union_watermark, dropped_union_blocks); warns
-        when updates have been dropped. Call at control rate."""
-        self._pending_stats = None
-        wm = int(self.state.union_watermark)
-        dropped = int(self.state.dropped_union_blocks)
-        self._warn_overflow(wm, dropped)
-        return wm, dropped
+        """Host readback of (union_watermark, dropped_union_blocks), the
+        JAX package's pair (the second is 0 here). Call at control
+        rate."""
+        return (int(self.state.union_watermark),
+                int(self.state.dropped_union_blocks))
 
     # -- frames ----------------------------------------------------------
 
@@ -537,7 +491,6 @@ class HostMapper:
         if not self.mapping_enabled:
             return False
         with runtime.span("mapper.step"):
-            self._consume_pending_stats()
             with runtime.span("mapper.upload"):
                 T_dev = self._tensor(T_odom_cam)
                 t_dev = torch.full((), t, dtype=torch.float32,
@@ -560,7 +513,6 @@ class HostMapper:
         was started."""
         if not self.mapping_enabled:
             return False
-        self._consume_pending_stats()
         T_dev = self._tensor(T_odom_sensor)
         t_dev = torch.full((), t, dtype=torch.float32, device=self.device)
         started = self._maybe_roll(T_odom_sensor, T_dev, t, t_dev)
@@ -583,7 +535,6 @@ class HostMapper:
         if not self.mapping_enabled:
             return 0
         with runtime.span("mapper.step_batch"):
-            self._consume_pending_stats()   # previous window's counters
             with runtime.span("mapper.rollover_plan"):
                 # poses for the mirror — host arrays only (a device input
                 # disables the mirror rather than paying a readback per
@@ -643,10 +594,6 @@ class HostMapper:
             # persist the interval clock even when the last rollover(s) were
             # saturation-DROPPED, so _rollover_sat fires once per interval
             self.last_start = last
-            self._windows_done += 1
-            if (self.stats_check_windows > 0
-                    and self._windows_done % self.stats_check_windows == 0):
-                self._schedule_stats_check()
             runtime.count("mapper.frames", F)
             runtime.count("mapper.rollovers", len(starts))
             return len(starts)
@@ -655,11 +602,9 @@ class HostMapper:
                    ) -> None:
         """Final local PGO, then stop integrating (the reference's
         finish_map service)."""
-        self._consume_pending_stats()
         if self.n_submaps > 1:
             optimize_local(self.cfg, self.state, solver_cfg)
             self.refresh_pose_mirror()
-        self.union_saturation()
         self.mapping_enabled = False
 
     # -- live meshing -----------------------------------------------------
@@ -708,7 +653,6 @@ class HostMapper:
         if k is None:
             k = max(self.n_submaps - 1, 0)
         mesher = self.live_mesher(k, **kwargs)
-        self._consume_pending_stats()
         with runtime.span("serve.consume_dirty"):
             row, _ = consume_mesh_dirty(self.state, k)
             if mesher.pending is not None:

@@ -18,10 +18,12 @@ arithmetic op for op, so the two give the same integers bit for bit.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from .. import _build
 from ..core import geometry as geo
 from ..core import voxel as vx
 from ..frontends.synthetic import PinholeIntrinsics
@@ -30,10 +32,15 @@ from ..utils.tensorops import (check_operand as _check, decimate,
 
 Tensor = torch.Tensor
 
-# Kernel launches since the last reset: alloc_pass adds two (the mark and
-# the compaction kernel) each time it runs on CUDA tensors, and nowhere
-# else.
-LAUNCHES = 0
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# two launches a call (the mark and the compaction kernel), counted under
+# "alloc"
+_ALLOC = _build.EntryPoint("alloc", "cox_tsdf_alloc", (
+    [_P] * 3       # depth, T, marks
+    + [ctypes.c_int64]   # the bytes of marks
+    + [_P] * 7     # index, coords, num_blocks, k, slots, mask, touched
+    + [_I] * 8     # height, width, stride, band, gd, mb, vps, lanes
+    + [_F] * 10))  # band lo hi step, cx cy 1/fx 1/fy min max 1/vs
 
 _GROUP = 64               # grid cells per summary byte of the scratch
 _COMPACT_THREADS = 1024   # threads of the compaction CTA
@@ -150,7 +157,6 @@ def alloc_pass(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
     device. CUDA tensors then launch the two kernels (two launches, no
     host read) or raise; CPU tensors run ``alloc_pass_reference`` and
     ignore ``marks``."""
-    global LAUNCHES
     device = layers.block_index.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"alloc_pass runs on cpu or cuda, not {device}")
@@ -179,13 +185,10 @@ def alloc_pass(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
     slots = torch.empty((K,), dtype=i32, device=device)
     slot_mask = torch.empty((K,), dtype=torch.bool, device=device)
 
-    from .. import _build
-
-    lib = _build.load()
     band = cfg.alloc_band_samples
     tau = spec.truncation
-    err = lib.cox_tsdf_alloc(
-        depth.data_ptr(), T_sm_cam.data_ptr(), marks.data_ptr(),
+    _ALLOC(
+        device, depth.data_ptr(), T_sm_cam.data_ptr(), marks.data_ptr(),
         marks.numel(), layers.block_index.data_ptr(),
         layers.block_coords.data_ptr(), layers.num_blocks.data_ptr(),
         k.data_ptr(), slots.data_ptr(), slot_mask.data_ptr(),
@@ -194,10 +197,5 @@ def alloc_pass(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
         spec.voxels_per_side, K, -tau, tau,
         f32_reciprocal(band - 1) if band > 1 else 0.0,
         intr.cx, intr.cy, f32_reciprocal(intr.fx), f32_reciprocal(intr.fy),
-        cfg.min_range, cfg.max_range, 1.0 / spec.voxel_size,
-        torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("tsdf_alloc launch failed: "
-                           + lib.cox_error_string(err).decode())
-    LAUNCHES += 2
+        cfg.min_range, cfg.max_range, 1.0 / spec.voxel_size, launches=2)
     return slots, slot_mask

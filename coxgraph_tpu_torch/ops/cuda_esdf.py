@@ -20,13 +20,20 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import _build
 from ..core import voxel as vx
 from ..utils.tensorops import check_operand as _check
 from . import esdf
 
-# Kernel launches since the last reset: esdf_sweeps adds 1 + n_iters (the
-# init kernel and one a sweep) each time it runs, and nowhere else.
-LAUNCHES = 0
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# 1 + n_iters launches a call (the init kernel and one a sweep), counted
+# under "esdf"
+_BUILD = _build.EntryPoint("esdf", "cox_esdf_build", (
+    [_P] * 10      # sdf, weight, index, coords, num_blocks, dist, observed,
+                   # tmp, band, nbr
+    + [_I] * 5     # B, v, gd, n_iters, full
+    + [_F] * 3     # max_distance, truncation, min weight
+    + [_P]))       # the host steps
 
 MAX_VOXELS_PER_SIDE = 16    # v × v threads a CTA, (v + 2)³ f32 of box
 NEIGHBOR_SLOTS = 27         # the table's row: every (dx, dy, dz) in {-1,0,1}³
@@ -56,7 +63,6 @@ def esdf_sweeps(spec: vx.VoxelGridSpec, tsdf: vx.TsdfLayer,
     whose ``dist`` and ``observed`` equal ``ops.esdf._esdf_sweeps``' bit
     for bit. A layer off the card, or one ``check_layer`` refuses, raises
     before any launch."""
-    global LAUNCHES
     device = tsdf.sdf.device
     if device.type != "cuda":
         raise ValueError(f"esdf_sweeps runs on cuda, not {device}")
@@ -74,22 +80,14 @@ def esdf_sweeps(spec: vx.VoxelGridSpec, tsdf: vx.TsdfLayer,
     band = torch.empty((B, v * v), dtype=i32, device=device)
     nbr = torch.empty((B, NEIGHBOR_SLOTS), dtype=i32, device=device)
 
-    from .. import _build
-
-    lib = _build.load()
-    err = lib.cox_esdf_build(
-        tsdf.sdf.data_ptr(), tsdf.weight.data_ptr(),
+    _BUILD(
+        device, tsdf.sdf.data_ptr(), tsdf.weight.data_ptr(),
         tsdf.block_index.data_ptr(), tsdf.block_coords.data_ptr(),
         tsdf.num_blocks.data_ptr(), dist.data_ptr(), observed.data_ptr(),
         None if tmp is None else tmp.data_ptr(), band.data_ptr(),
         nbr.data_ptr(), B, v, g, n_iters, int(cfg.full_connectivity),
         cfg.max_distance, spec.truncation, MIN_WEIGHT,
-        steps.ctypes.data_as(ctypes.c_void_p),
-        torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("esdf_sweep launch failed: "
-                           + lib.cox_error_string(err).decode())
-    LAUNCHES += 1 + n_iters
+        steps.ctypes.data_as(ctypes.c_void_p), launches=1 + n_iters)
     return esdf.EsdfLayer(dist=dist, observed=observed,
                           block_index=tsdf.block_index,
                           block_coords=tsdf.block_coords,

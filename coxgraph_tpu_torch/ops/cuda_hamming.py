@@ -36,10 +36,12 @@ bounds it.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
+from .. import _build
 from ..utils.tensorops import check_operand
 
 Tensor = torch.Tensor
@@ -48,9 +50,10 @@ N_WORDS = 8
 # K2's second-best sentinel (pallas_kernels.py:57)
 TOPK_SENTINEL = 1 << 15
 
-# Kernel launches since the last reset: hamming_match_topk and match_topk
-# add one where they launch the CUDA kernel, and nowhere else.
-LAUNCHES = 0
+# one launch a call, counted under "k2"
+_TOPK = _build.EntryPoint("k2", "cox_hamming_topk", (
+    [ctypes.c_void_p] * 8     # a, a_valid, b, b_valid, d1, i1, d2, best_a
+    + [ctypes.c_int] * 7))    # n_q, cap, ka, kb, b_batched, big, excl
 
 
 def popcount32(x: Tensor) -> Tensor:
@@ -104,7 +107,6 @@ def _launch(a: Tensor, a_valid: Optional[Tensor], b: Tensor,
             want_cols: bool):
     """Check the CUDA operands and launch the kernel once → (d1, i1, d2,
     best_a or None)."""
-    global LAUNCHES
     device = a.device
     if device.type != "cuda":
         raise ValueError(f"the Hamming kernel runs on cuda, not {device}")
@@ -133,22 +135,13 @@ def _launch(a: Tensor, a_valid: Optional[Tensor], b: Tensor,
     best_a = (torch.empty((nq, cap, kb), dtype=i32, device=device)
               if want_cols else None)
 
-    from .. import _build
-
-    lib = _build.load()
-    stream = torch.cuda.current_stream(device).cuda_stream
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    err = lib.cox_hamming_topk(
-        a.data_ptr(), ptr(a_valid), b.data_ptr(), ptr(b_valid),
-        d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), ptr(best_a),
-        nq, cap, ka, kb, int(b.shape[0] != 1), big, excl, stream)
-    if err != 0:
-        raise RuntimeError("hamming_topk launch failed: "
-                           + lib.cox_error_string(err).decode())
-    LAUNCHES += 1
+    _TOPK(device, a.data_ptr(), ptr(a_valid), b.data_ptr(), ptr(b_valid),
+          d1.data_ptr(), i1.data_ptr(), d2.data_ptr(), ptr(best_a),
+          nq, cap, ka, kb, int(b.shape[0] != 1), big, excl)
     return d1, i1, d2, best_a
 
 

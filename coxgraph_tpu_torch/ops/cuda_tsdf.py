@@ -27,10 +27,12 @@ not ported.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
+from .. import _build
 from ..core import geometry as geo
 from ..core import voxel as vx
 from ..frontends.synthetic import PinholeIntrinsics
@@ -38,9 +40,13 @@ from ..utils.tensorops import check_operand as _check, f32_reciprocal
 
 Tensor = torch.Tensor
 
-# Kernel launches since the last reset: update_blocks adds one where it
-# launches the CUDA kernel, and nowhere else.
-LAUNCHES = 0
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# one launch a call, counted under "k1"
+_UPDATE = _build.EntryPoint("k1", "cox_tsdf_update_blocks", (
+    [_P] * 10      # pools, coords, k, slots, mask, depth, color, T
+    + [_I] * 6     # n_lanes, mb, vps, vec, height, width
+    + [_F] * 11    # fx fy cx cy min max tau 1/(tau/2) max_w vs bs
+    + [_I, _I]))   # use_dropoff, use_distance_weight
 
 
 def voxels_per_thread(v3: int) -> int:
@@ -146,7 +152,6 @@ def update_blocks(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
     alone: rows of v³ f32 that are a multiple of 8 bytes (even v) take 2
     voxels per thread in 8-byte accesses, and the pools must then be
     8-byte aligned; other rows (odd v) take 1 voxel per thread."""
-    global LAUNCHES
     device = layers.sdf.device
     if device.type == "cpu":
         update_blocks_reference(spec, cfg, intr, layers, k, slots,
@@ -178,23 +183,21 @@ def update_blocks(spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
         _check("color", color, f32, (3, H, W), device)
     _check("T_cam_sm", T_cam_sm, f32, (7,), device)
 
-    from .. import _build
-
-    launch(_build.load(), spec, cfg, intr, layers, k, slots, slot_mask,
-           depth, color, T_cam_sm)
-    LAUNCHES += 1
+    launch(None, spec, cfg, intr, layers, k, slots, slot_mask, depth,
+           color, T_cam_sm)
 
 
 def launch(lib, spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
            layers: vx.TsdfLayer, k: Tensor, slots: Tensor,
            slot_mask: Tensor, depth: Tensor, color: Optional[Tensor],
            T_cam_sm: Tensor) -> None:
-    """Launch ``lib``'s block update on the current stream, operands
-    unchecked (``update_blocks`` checks them; tools/time_k1_variants.py
-    launches builds of edited copies of the kernel through this)."""
+    """Launch the block update on the current stream, operands unchecked
+    (``update_blocks`` checks them); ``lib``: this library, or a build of
+    an edited copy of the kernel (tools/time_k1_variants.py)."""
     v = spec.voxels_per_side
     tau = spec.truncation
-    err = lib.cox_tsdf_update_blocks(
+    _UPDATE(
+        layers.sdf.device,
         layers.sdf.data_ptr(), layers.weight.data_ptr(),
         layers.color.data_ptr(), layers.block_coords.data_ptr(),
         k.data_ptr(), slots.data_ptr(), slot_mask.data_ptr(),
@@ -204,8 +207,4 @@ def launch(lib, spec: vx.VoxelGridSpec, cfg, intr: PinholeIntrinsics,
         intr.height, intr.width, intr.fx, intr.fy, intr.cx, intr.cy,
         cfg.min_range, cfg.max_range, tau, f32_reciprocal(0.5 * tau),
         cfg.max_weight, spec.voxel_size, spec.block_size,
-        int(cfg.use_dropoff), int(cfg.use_distance_weight),
-        torch.cuda.current_stream(layers.sdf.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("tsdf_update_blocks launch failed: "
-                           + lib.cox_error_string(err).decode())
+        int(cfg.use_dropoff), int(cfg.use_distance_weight), lib=lib)

@@ -26,6 +26,7 @@ import torch
 
 from .. import runtime
 from ..core import voxel as vx
+from . import cuda_esdf    # imports this module back: used at call time
 
 Tensor = torch.Tensor
 
@@ -112,8 +113,6 @@ def esdf_from_tsdf(spec: vx.VoxelGridSpec, tsdf: vx.TsdfLayer,
     on CUDA (or a raise), the plain sweeps elsewhere."""
     with runtime.span("esdf.build"):
         if tsdf.sdf.device.type == "cuda":
-            from . import cuda_esdf
-
             out = cuda_esdf.esdf_sweeps(spec, tsdf, cfg)
         else:
             out = _esdf_sweeps(spec, tsdf, cfg)

@@ -15,8 +15,8 @@ Each frame is integrated in two passes:
      kernel on the GPU, its plain torch twin on the CPU).
 
 A window of frames runs the frames in sequence, with the semantics of the
-reference's XLA path: no working-set cap, ``n_union`` is the size of the
-window's touched-slot union and ``n_dropped`` is always 0.
+reference's XLA path: no working-set cap, so every touched block of every
+frame is updated (the JAX package's ``n_dropped`` is 0).
 
 The pools of a stacked collection (leading (S,) axis) are addressed
 through flat ``(S·max_blocks, ·)`` views with base ``k·max_blocks``; ``k``
@@ -44,13 +44,11 @@ Tensor = torch.Tensor
 
 @dataclasses.dataclass(frozen=True)
 class TsdfIntegratorConfig:
-    """Static integrator parameters — the JAX package's fields and
-    defaults, so configs carry across (``utils.interop.config_from``).
-
-    ``update_chunk_blocks``, ``use_pallas``, ``window_union_blocks`` and
-    ``tile_h`` configure the TPU's Pallas path and working set; the GPU
-    path reads none of them (one kernel launch covers all touched blocks,
-    and a window has no union cap)."""
+    """Static integrator parameters: the JAX package's fields and defaults
+    that the card reads. ``utils.interop.config_from`` copies a JAX config
+    into these fields and drops its four that configure the TPU's Pallas
+    path and working set: here one kernel launch covers all touched
+    blocks, and a window has no union cap."""
 
     max_range: float = 10.0
     min_range: float = 0.1
@@ -62,10 +60,6 @@ class TsdfIntegratorConfig:
     #   under-allocates at 80×60 test scale; keep 4 as the default)
     use_dropoff: bool = True        # linear weight drop-off behind surface
     use_distance_weight: bool = True  # 1/z² observation weighting
-    update_chunk_blocks: int = 512  # unused on the GPU
-    use_pallas: Optional[bool] = None  # unused on the GPU
-    window_union_blocks: int = 1024  # unused on the GPU
-    tile_h: int = 48                # unused on the GPU
 
 
 def color_layout(color: Tensor, height: int, width: int) -> str:
@@ -106,43 +100,22 @@ def touched_block_slots(spec: vx.VoxelGridSpec, layer: vx.TsdfLayer,
     return torch.clamp(slots, max=mb - 1), mask
 
 
-def integrate_frame_stacked_impl(spec: vx.VoxelGridSpec,
-                                 cfg: TsdfIntegratorConfig,
-                                 intr: PinholeIntrinsics,
-                                 layers: vx.TsdfLayer, k: Tensor,
-                                 depth: Tensor, color: Optional[Tensor],
-                                 T_sm_cam: Tensor,
-                                 return_stats: bool = False):
-    """Integrate one RGB-D frame into submap ``k`` (0-d int32 device
-    tensor) of a STACKED collection, IN PLACE.
-
-    depth: (H,W) z-depth (0 = invalid); color: (H,W,3) or (3,H,W) in
-    [0,1], or None; T_sm_cam: (7,) camera pose in the submap frame.
-    ``return_stats=True`` also returns ``(n_union, n_dropped, updated)``
-    as integrate_window_stacked_impl does."""
-    return integrate_window_stacked_impl(
-        spec, cfg, intr, layers, k, depth[None],
-        None if color is None else color[None], T_sm_cam[None],
-        return_stats=return_stats)
-
-
 def integrate_window_stacked_impl(spec: vx.VoxelGridSpec,
                                   cfg: TsdfIntegratorConfig,
                                   intr: PinholeIntrinsics,
                                   layers: vx.TsdfLayer, k: Tensor,
                                   depths: Tensor, colors: Optional[Tensor],
-                                  T_sm_cams: Tensor,
-                                  return_stats: bool = False):
-    """Integrate a WINDOW of F frames into submap ``k`` of a stacked
-    collection, IN PLACE, frame after frame (each frame: allocation pass,
-    then one block-update launch over its touched blocks).
-    colors: (F,3,H,W) | (F,H,W,3) | None.
+                                  T_sm_cams: Tensor) -> Tensor:
+    """Integrate a WINDOW of F frames into submap ``k`` (0-d int32 device
+    tensor) of a stacked collection, IN PLACE, frame after frame (each
+    frame: allocation pass, then one block-update launch over its touched
+    blocks) → the (max_blocks,) bool bitmap of slots whose voxels were
+    updated (feeds MapperState.mesh_dirty; its count is the window's
+    touched-slot union, the JAX package's ``n_union``).
 
-    ``return_stats=True`` additionally returns ``(n_union, n_dropped,
-    updated)``: the window's touched-slot union size (() int32), the count
-    of blocks that lost their update (always 0 here: no working-set cap)
-    and the (max_blocks,) bool bitmap of slots whose voxels were updated
-    (feeds MapperState.mesh_dirty)."""
+    depths: (F,H,W) z-depth (0 = invalid); colors: (F,3,H,W) | (F,H,W,3)
+    in [0,1], or None; T_sm_cams: (F,7) camera poses in the submap
+    frame."""
     mb = spec.max_blocks
     device = depths.device
     depths = depths.contiguous()
@@ -164,12 +137,7 @@ def integrate_window_stacked_impl(spec: vx.VoxelGridSpec,
                 spec, cfg, intr, layers, k, slots, mask, depths[f],
                 None if colors is None else colors[f],
                 geo.inverse(T_sm_cams[f]))
-    if not return_stats:
-        return layers
-    touched = touched[:mb]
-    return layers, (touched.sum(dtype=torch.int32),
-                    torch.zeros((), dtype=torch.int32, device=device),
-                    touched)
+    return touched[:mb]
 
 
 def integrate_frame(spec: vx.VoxelGridSpec, cfg: TsdfIntegratorConfig,
@@ -181,6 +149,7 @@ def integrate_frame(spec: vx.VoxelGridSpec, cfg: TsdfIntegratorConfig,
     stacked = vx.TsdfLayer(**{f.name: getattr(layer, f.name)[None]
                               for f in dataclasses.fields(layer)})
     k = torch.zeros((), dtype=torch.int32, device=depth.device)
-    integrate_frame_stacked_impl(spec, cfg, intr, stacked, k, depth, color,
-                                 T_sm_cam)
+    integrate_window_stacked_impl(spec, cfg, intr, stacked, k, depth[None],
+                                  None if color is None else color[None],
+                                  T_sm_cam[None])
     return layer

@@ -14,6 +14,12 @@ of the card's kernels and copies) and adds its host wall time to one
 process-wide ``Timers``, and ``snapshot()`` returns what was summed. A
 span never fences the card, and a counter only adds values the host
 already holds.
+
+Kernel launches: every hand-written kernel's launches are counted here,
+under its name, whether tracing is on or off (``add_launches``, called
+by ``_build.EntryPoint``); ``launches(name)`` reads one count and
+``snapshot()`` reports each as ``name + ".launches"``. This module
+imports nothing from the package.
 """
 
 from __future__ import annotations
@@ -129,6 +135,7 @@ _OFF = contextlib.nullcontext()  # the one span handed out while off
 _LOCK = threading.Lock()         # taken only while tracing is on
 _TIMERS = Timers()               # span name → host wall time and count
 _COUNTERS: Dict[str, int] = defaultdict(int)
+_launch_counts: Dict[str, int] = {}  # kernel name → launches, always on
 
 
 def tracing(on: bool) -> None:
@@ -178,21 +185,29 @@ def count(name: str, n: int = 1) -> None:
         _COUNTERS[name] += n
 
 
+def add_launches(name: str, n: int) -> None:
+    """Add ``n`` launches of kernel ``name``, tracing on or off (``n = 0``
+    declares the name, so ``snapshot`` reports it before its first
+    launch)."""
+    _launch_counts[name] = _launch_counts.get(name, 0) + n
+
+
+def launches(name: str) -> int:
+    """Kernel ``name``'s launches so far in this process (0 before its
+    first)."""
+    return _launch_counts.get(name, 0)
+
+
 def snapshot() -> dict:
     """What tracing has summed so far → ``{"spans": {name: {"n",
-    "total_s"}}, "counters": {name: value}}``; the counters include the
-    kernel launches ``k1.launches``, ``k2.launches``, ``alloc.launches``
-    and ``esdf.launches`` (``ops.cuda_tsdf.LAUNCHES``,
-    ``ops.cuda_hamming.LAUNCHES``, ``ops.cuda_alloc.LAUNCHES``,
-    ``ops.cuda_esdf.LAUNCHES``, counted whether tracing is on or not).
+    "total_s"}}, "counters": {name: value}}``; the counters include every
+    declared kernel's launches as ``name + ".launches"`` (``k1``, ``k2``,
+    ``alloc``, ``esdf``: one entry each, declared when its wrapper module
+    in ``ops`` is imported), counted whether tracing is on or not.
     Difference two snapshots to read a stretch."""
-    from .ops import cuda_alloc, cuda_esdf, cuda_hamming, cuda_tsdf
-
     with _LOCK:
         spans = json.loads(_TIMERS.as_json())
         counters = dict(_COUNTERS)
-    counters["k1.launches"] = cuda_tsdf.LAUNCHES
-    counters["k2.launches"] = cuda_hamming.LAUNCHES
-    counters["alloc.launches"] = cuda_alloc.LAUNCHES
-    counters["esdf.launches"] = cuda_esdf.LAUNCHES
+    counters.update((f"{name}.launches", n)
+                    for name, n in _launch_counts.items())
     return {"spans": spans, "counters": counters}

@@ -318,7 +318,10 @@ _CONFIGS = {c.__name__: c for c in (
 
 def config_from(obj):
     """Copy a config object (matched by class name) into the port's frozen
-    dataclass of the same name, recursing into nested configs."""
+    dataclass of the same name, recursing into nested configs. Only the
+    port's fields are read: a JAX config's TPU-only fields (those of
+    ``TsdfIntegratorConfig`` for the Pallas path and working set) are
+    dropped by design."""
     cls = _CONFIGS.get(type(obj).__name__)
     if cls is None:
         raise TypeError(f"no port config for {type(obj).__name__}")

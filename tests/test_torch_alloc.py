@@ -4,11 +4,12 @@ Its two CUDA kernels (``csrc/tsdf_alloc.cu``) run only on a card, where
 tests/test_torch_cuda.py holds them to the plain version bit for bit.
 Here: CPU tensors take the plain version and launch nothing; the wrapper
 refuses operands of the wrong dtype, device or shape; ``runtime.snapshot()``
-counts the kernels' launches; the scratch layout holds every grid the port
+reports the kernels' launch count; the scratch layout holds every grid the port
 uses; and the plain version keeps its contract (the K smallest unique
 cells, new blocks on consecutive slots up to max_blocks, only submap k
 written) in the cases the card tests run: K cap, full pool, submap k of S,
-a grid whose g³ is no multiple of 64."""
+a grid whose g³ is no multiple of 64. The three frames are rendered once
+for the module."""
 
 import dataclasses
 
@@ -34,12 +35,15 @@ def _spec(grid_dim=16, max_blocks=256):
                             truncation=0.3)
 
 
-def _frames(n):
+@pytest.fixture(scope="module")
+def frames():
+    """Three (depth, pose) frames of an orbit, shared by every test here
+    (no test writes to them)."""
     scene = syn.default_scene(CPU)
-    traj = syn.orbit_trajectory(n, scene.room_center, radius=2.5,
+    traj = syn.orbit_trajectory(3, scene.room_center, radius=2.5,
                                 sweep=0.3 * np.pi)
     return [(syn.render_depth(scene, INTR, traj[i])[0], traj[i])
-            for i in range(n)]
+            for i in range(3)]
 
 
 def _tables(spec, S=1):
@@ -66,7 +70,7 @@ def _k(k=0):
 # --- the wrapper on the CPU --------------------------------------------
 
 
-def test_cpu_pass_is_the_plain_composition():
+def test_cpu_pass_is_the_plain_composition(frames):
     """CPU tensors: alloc_pass is alloc_candidates_reference then
     voxel.allocate_and_slots written back into submap k, the live slots
     ORed into ``touched``; no kernel launch is counted."""
@@ -75,8 +79,8 @@ def test_cpu_pass_is_the_plain_composition():
     got, want = _tables(spec), _tables(spec)
     touched = torch.zeros(mb + 1, dtype=torch.bool)
     want_touched = torch.zeros(mb, dtype=torch.bool)
-    before = cuda_alloc.LAUNCHES
-    for depth, T in _frames(3):
+    before = runtime.launches("alloc")
+    for depth, T in frames:
         slots, mask = cuda_alloc.alloc_pass(spec, CFG, INTR, got, _k(),
                                             depth, T, touched)
         cells, valid = cuda_alloc.alloc_candidates_reference(
@@ -92,7 +96,7 @@ def test_cpu_pass_is_the_plain_composition():
         for name in TABLES:
             assert torch.equal(getattr(got, name), getattr(want, name))
         assert torch.equal(touched[:mb], want_touched)
-    assert cuda_alloc.LAUNCHES == before
+    assert runtime.launches("alloc") == before
 
 
 META = torch.device("meta")
@@ -125,25 +129,32 @@ BAD = {
 
 
 @pytest.mark.parametrize("case", list(BAD))
-def test_wrapper_rejects_bad_operands(case):
+def test_wrapper_rejects_bad_operands(case, frames):
     """A wrong dtype, device or shape raises before any work: the tables
     stay as they were and no launch is counted."""
     spec = _spec()
     lay = _tables(spec)
-    depth, T = _frames(1)[0]
+    depth, T = frames[0]
     name, val, exc = BAD[case](lay, depth, T)
     args = dict(layers=lay, k=_k(), depth=depth, T_sm_cam=T, touched=None)
     args[name] = val
-    before = cuda_alloc.LAUNCHES
+    before = runtime.launches("alloc")
     with pytest.raises(exc):
         cuda_alloc.alloc_pass(spec, CFG, INTR, **args)
-    assert cuda_alloc.LAUNCHES == before
+    assert runtime.launches("alloc") == before
     assert int(lay.num_blocks[0]) == 0 and int(lay.block_index.max()) == -1
 
 
 def test_snapshot_reports_alloc_launches(monkeypatch):
-    monkeypatch.setattr(cuda_alloc, "LAUNCHES", 7)
-    assert runtime.snapshot()["counters"]["alloc.launches"] == 7
+    """The wrapper's entry point counts under "alloc" in runtime, and
+    launches added there show in snapshot() as "alloc.launches"."""
+    monkeypatch.setattr(runtime, "_launch_counts",
+                        dict(runtime._launch_counts))
+    assert cuda_alloc._ALLOC.name == "alloc"
+    before = runtime.snapshot()["counters"]["alloc.launches"]
+    runtime.add_launches("alloc", 2)
+    assert runtime.snapshot()["counters"]["alloc.launches"] == before + 2
+    assert runtime.launches("alloc") == before + 2
 
 
 @pytest.mark.parametrize("grid_dim", [8, 10, 16, 32, 64])
@@ -195,7 +206,7 @@ CONTRACT = {
 
 
 @pytest.mark.parametrize("case", list(CONTRACT))
-def test_cpu_pass_follows_its_contract(case):
+def test_cpu_pass_follows_its_contract(case, frames):
     """Three frames chained through the CPU pass (the plain version the
     kernels are held to on the card), with a scratch it must leave alone:
     slots, mask, submap k's tables and the touched bitmap follow from the
@@ -222,7 +233,7 @@ def test_cpu_pass_follows_its_contract(case):
     marks = cuda_alloc.new_marks(spec, CPU)
     want_touched = np.zeros(mb, bool)
     n_unique = []
-    for f, (depth, T) in enumerate(_frames(3)):
+    for f, (depth, T) in enumerate(frames):
         if f == 1 and "fill" in c:      # the pool within a few slots
             layers.num_blocks[kk] = mb - c["fill"]
         bi = layers.block_index[kk].reshape(-1).numpy().copy()

@@ -267,8 +267,15 @@ def test_yaml_config_matches_jax(tmp_path):
     assert cfgs["mapper"].spec.max_blocks == 512
     assert cfgs["server"].solver.huber_delta == 0.4
     assert "submap_interval: 5.0" in cfgutil.describe(cfgs["mapper"])
-    assert cfgutil.describe(cfgs["mapper"]) == jconfig.describe(
-        want["mapper"])
+    # the JAX description less its integrator's four TPU-only fields,
+    # which the port does not have
+    tpu_only = {"update_chunk_blocks", "use_pallas", "window_union_blocks",
+                "tile_h"}
+    jax_lines = jconfig.describe(want["mapper"]).splitlines()
+    assert cfgutil.describe(cfgs["mapper"]).splitlines() == [
+        ln for ln in jax_lines if ln.split(":")[0].strip() not in tpu_only]
+    assert len(jax_lines) - len(tpu_only) == len(
+        cfgutil.describe(cfgs["mapper"]).splitlines())
     bad = tmp_path / "bad.yaml"
     bad.write_text("voxel: {voxel_sz: 0.1}")
     with pytest.raises(KeyError):

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from coxgraph_tpu_torch import runtime
 from coxgraph_tpu_torch.core import geometry as geo
 from coxgraph_tpu_torch.core import voxel as vx
 from coxgraph_tpu_torch.frontends import loop_detector as ld
@@ -82,9 +83,9 @@ def test_kernel_matches_twin(gpu, vps):
         assert torch.equal(sk, st) and torch.equal(mk, mt)
         args = (k, sk, mk, depths[f], planar[f],
                 geo.inverse(traj[f]).contiguous())
-        before = cuda_tsdf.LAUNCHES
+        before = runtime.launches("k1")
         cuda_tsdf.update_blocks(spec, CFG, INTR, lk, *args)
-        assert cuda_tsdf.LAUNCHES == before + 1
+        assert runtime.launches("k1") == before + 1
         cuda_tsdf.update_blocks_reference(spec, CFG, INTR, lt, *args)
         torch.cuda.synchronize()
         assert int((lt.weight > 0).sum()) > min(1000, 4 * vps ** 3)
@@ -142,9 +143,9 @@ def test_kernel_edge_lanes_match_twin(gpu, vps):
     lk, lt = (vx.TsdfLayer(**{f.name: getattr(base, f.name).clone()
                              for f in dataclasses.fields(base)})
               for _ in range(2))
-    before = cuda_tsdf.LAUNCHES
+    before = runtime.launches("k1")
     cuda_tsdf.update_blocks(spec, cfg, INTR, lk, *args)
-    assert cuda_tsdf.LAUNCHES == before + 1
+    assert runtime.launches("k1") == before + 1
     cuda_tsdf.update_blocks_reference(spec, cfg, INTR, lt, *args)
     torch.cuda.synchronize()
     for f_ in dataclasses.fields(lk):
@@ -176,13 +177,13 @@ def test_wrapper_rejects_misaligned_pools(gpu):
                 torch.zeros(64, dtype=torch.int32, device=gpu),
                 torch.zeros(64, dtype=torch.bool, device=gpu), depths[0],
                 planar, geo.inverse(traj[0]).contiguous())
-        before = cuda_tsdf.LAUNCHES
+        before = runtime.launches("k1")
         if refused:
             with pytest.raises(ValueError):
                 cuda_tsdf.update_blocks(spec, CFG, INTR, lay, *args)
         else:
             cuda_tsdf.update_blocks(spec, CFG, INTR, lay, *args)
-        assert cuda_tsdf.LAUNCHES == before + (not refused)
+        assert runtime.launches("k1") == before + (not refused)
 
 
 @pytest.mark.cuda
@@ -203,12 +204,12 @@ def test_wrapper_rejects_bad_inputs(gpu):
            ("color", colors[0], ValueError),            # interleaved
            ("color", colors[0].permute(2, 0, 1), ValueError),  # strided
            ("k", k.reshape(1), ValueError)]
-    before = cuda_tsdf.LAUNCHES
+    before = runtime.launches("k1")
     for name, val, exc in bad:
         with pytest.raises(exc):
             cuda_tsdf.update_blocks(spec, CFG, INTR, lay,
                                     **dict(good, **{name: val}))
-    assert cuda_tsdf.LAUNCHES == before
+    assert runtime.launches("k1") == before
 
 
 @pytest.mark.cuda
@@ -224,10 +225,10 @@ def test_step_batch_on_gpu_matches_cpu(gpu):
     out = {}
     for dev in (torch.device("cpu"), gpu):
         hm = sm.HostMapper(cfg, device=dev)
-        before = cuda_tsdf.LAUNCHES
+        before = runtime.launches("k1")
         assert hm.step_batch(depths.to(dev), colors.to(dev),
                              traj.to(dev), ts) == 3
-        launched = cuda_tsdf.LAUNCHES - before
+        launched = runtime.launches("k1") - before
         assert launched == (8 if dev.type == "cuda" else 0)
         out[dev.type] = hm.state
     for name in ("block_index", "block_coords", "num_blocks"):
@@ -278,10 +279,10 @@ def _alloc_kernels_vs_plain(spec, cfg, intr, layers, k, frames, fill=None):
         cells, valid = cuda_alloc.alloc_candidates_reference(
             spec, cfg, intr, depth, T)
         unique.append(int(torch.unique(cells[valid]).numel()))
-        before = cuda_alloc.LAUNCHES
+        before = runtime.launches("alloc")
         sk, mk = cuda_alloc.alloc_pass(spec, cfg, intr, layers, k, depth, T,
                                        touched[0], marks)
-        assert cuda_alloc.LAUNCHES == before + 2
+        assert runtime.launches("alloc") == before + 2
         sp, mp = cuda_alloc.alloc_pass_reference(spec, cfg, intr, plain, k,
                                                  depth, T, touched[1])
         torch.cuda.synchronize()
@@ -410,10 +411,10 @@ def test_alloc_kernels_need_the_scratch(gpu):
     layers = _tables(spec, 1, gpu)
     depth, T = _orbit(gpu, INTR, 1)[0]
     k = torch.zeros((), dtype=torch.int32, device=gpu)
-    before = cuda_alloc.LAUNCHES
+    before = runtime.launches("alloc")
     with pytest.raises(ValueError, match="new_marks"):
         cuda_alloc.alloc_pass(spec, CFG, INTR, layers, k, depth, T)
-    assert cuda_alloc.LAUNCHES == before
+    assert runtime.launches("alloc") == before
     assert int(layers.num_blocks[0]) == 0
     assert int(layers.block_index.max()) == -1
 
@@ -429,10 +430,11 @@ def test_step_batch_takes_the_alloc_kernels(gpu, monkeypatch):
                           max_submaps=4, max_history=64, submap_interval=10.0)
     depths, colors, traj = _frames(gpu, 6)
     hm = sm.HostMapper(cfg, device=gpu)
-    a0, k0 = cuda_alloc.LAUNCHES, cuda_tsdf.LAUNCHES
+    a0, k0 = runtime.launches("alloc"), runtime.launches("k1")
     hm.step_batch(depths, colors, traj, np.arange(6) * 0.1)
     torch.cuda.synchronize()
-    assert cuda_alloc.LAUNCHES - a0 == 12 and cuda_tsdf.LAUNCHES - k0 == 6
+    assert runtime.launches("alloc") - a0 == 12
+    assert runtime.launches("k1") - k0 == 6
     assert int(hm.state.collection.layers.num_blocks[0]) > 0
 
 
@@ -453,9 +455,9 @@ def test_hamming_topk_kernel_matches_plain(gpu, ka, kb):
     da, db = _words(g, ka, device=gpu), _words(g, kb, device=gpu)
     db[: min(ka, kb) // 2] = da[: min(ka, kb) // 2]    # exact matches
     db[-1] = db[0]                                     # tied columns
-    before = cuda_hamming.LAUNCHES
+    before = runtime.launches("k2")
     got = cuda_hamming.hamming_match_topk(da, db)
-    assert cuda_hamming.LAUNCHES == before + 1
+    assert runtime.launches("k2") == before + 1
     want = cuda_hamming.hamming_match_topk_reference(da, db)
     for g_, w, name in zip(got, want, ("d1", "i1", "d2")):
         assert g_.dtype == torch.int32 and torch.equal(g_, w), name
@@ -513,9 +515,9 @@ def test_match_topk_kernel_matches_plain(gpu, shared, nq, cap, ka, kb):
     invalid rows, columns, a whole invalid slot and query."""
     g = torch.Generator(device=gpu).manual_seed(int(shared) + ka + kb)
     a, av, b, bv = _match_inputs(g, nq, cap, ka, kb, shared, gpu)
-    before = cuda_hamming.LAUNCHES
+    before = runtime.launches("k2")
     got = cuda_hamming.match_topk(a, av, b, bv, 10_000, 10_000)
-    assert cuda_hamming.LAUNCHES == before + 1
+    assert runtime.launches("k2") == before + 1
     want = cuda_hamming.match_topk_reference(a, av, b, bv, 10_000, 10_000)
     for g_, w, name in zip(got, want, ("d1", "i1", "d2", "best_a")):
         assert torch.equal(g_, w), name
@@ -548,11 +550,11 @@ def test_hamming_wrapper_rejects_bad_inputs(gpu):
            ("a_valid", av.int(), TypeError), ("big", 1 << 15, ValueError),
            ("a", a.reshape(-1)[1:1 + 2 * 63 * 8].reshape(2, 63, 8),
             ValueError)]                        # not 16-byte aligned
-    before = cuda_hamming.LAUNCHES
+    before = runtime.launches("k2")
     for name, val, exc in bad:
         with pytest.raises(exc):
             cuda_hamming.match_topk(**dict(good, **{name: val}))
-    assert cuda_hamming.LAUNCHES == before
+    assert runtime.launches("k2") == before
 
 
 @pytest.mark.cuda
@@ -582,7 +584,7 @@ def test_loop_detector_on_gpu_matches_cpu(gpu):
 
     dets = {dev: ld.LoopDetector(INTR, cfg, device=dev)
             for dev in ("cpu", gpu)}
-    before = cuda_hamming.LAUNCHES
+    before = runtime.launches("k2")
     with pytest.warns(RuntimeWarning):
         for i in range(40):
             k_cpu, base = kp("cpu")
@@ -591,7 +593,7 @@ def test_loop_detector_on_gpu_matches_cpu(gpu):
                     dets[gpu].ingest_keypoints(i % 2, float(i), k_gpu)]
             assert [(m.from_client, m.from_time) for m in msgs[0]] == \
                 [(m.from_client, m.from_time) for m in msgs[1]]
-    assert cuda_hamming.LAUNCHES > before
+    assert runtime.launches("k2") > before
     tables = [[None if k is None else (k.client_id, k.t) for k in d.slots]
               for d in dets.values()]
     assert tables[0] == tables[1]
@@ -766,9 +768,9 @@ def _esdf_kernels_vs_plain(spec, layer, ecfg):
     host sync) ≡ the plain sweeps on the card, dist's bits and observed,
     every max_blocks row."""
     n_iters = esdf_ops.sweep_count(spec, ecfg)
-    before = cuda_esdf.LAUNCHES
+    before = runtime.launches("esdf")
     e = _no_sync(lambda: esdf_ops.esdf_from_tsdf(spec, layer, ecfg))
-    assert cuda_esdf.LAUNCHES - before == 1 + n_iters
+    assert runtime.launches("esdf") - before == 1 + n_iters
     plain = esdf_ops._esdf_sweeps(spec, layer, ecfg)
     torch.cuda.synchronize()
     assert e.dist.shape == plain.dist.shape == (layer.max_blocks,
@@ -1342,14 +1344,13 @@ def test_endurance_lap_on_gpu(gpu):
     K2 launched."""
     from coxgraph_tpu_torch.eval import endurance as en
 
-    cuda_tsdf.LAUNCHES = 0
-    cuda_hamming.LAUNCHES = 0
+    k1, k2 = runtime.launches("k1"), runtime.launches("k2")
     art = en.endurance_run(gpu, laps=1, out=None, log=None)
     assert art["ok"], (art["gates"], art["optimize_errors"])
-    assert cuda_tsdf.LAUNCHES == sum(art["integrated_frames"]) \
+    assert runtime.launches("k1") - k1 == sum(art["integrated_frames"]) \
         == 2 * en.N_LAP
     assert art["mapper_windows"] == [en.N_LAP // en.WINDOW] * 2
-    assert cuda_hamming.LAUNCHES >= 1
+    assert runtime.launches("k2") - k2 >= 1
 
 
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -1379,13 +1380,13 @@ def test_drift_correction_gates_on_gpu(gpu, point):
     detector's path, the mapper's pose mirror equal to the device's."""
     from coxgraph_tpu_torch.eval import demos
 
-    cuda_tsdf.LAUNCHES = 0
-    cuda_hamming.LAUNCHES = 0
+    k1, k2 = runtime.launches("k1"), runtime.launches("k2")
     r = demos.drift_correction(os.path.join(FIXTURES, point), point, gpu)
     assert r["ok"], {k: r[k] for k in ("closures", "routed", "ate_drifted",
                                        "ate_corrected", "mirror_err")}
-    assert cuda_tsdf.LAUNCHES == r["k1_launches"] == r["frames"] == 144
-    assert cuda_hamming.LAUNCHES == r["k2_launches"] > 0
+    assert runtime.launches("k1") - k1 == r["k1_launches"] == r["frames"] \
+        == 144
+    assert runtime.launches("k2") - k2 == r["k2_launches"] > 0
 
 
 @pytest.mark.cuda
@@ -1431,9 +1432,9 @@ def test_kernel_matches_twin_on_real_depth_with_holes(gpu):
         assert torch.equal(sk, st) and torch.equal(mk, mt)
         args = (k, sk, mk, depth, color.permute(2, 0, 1).contiguous(),
                 geo.inverse(T).contiguous())
-        before = cuda_tsdf.LAUNCHES
+        before = runtime.launches("k1")
         cuda_tsdf.update_blocks(spec, icfg, intr, lk, *args)
-        assert cuda_tsdf.LAUNCHES == before + 1
+        assert runtime.launches("k1") == before + 1
         cuda_tsdf.update_blocks_reference(spec, icfg, intr, lt, *args)
         torch.cuda.synchronize()
         assert int((lt.weight > 0).sum()) > 10_000
@@ -1465,9 +1466,9 @@ def test_hamming_kernel_matches_plain_on_real_descriptors(gpu):
     cases.append((desc[:3], valid[:3], desc[1:4, None].contiguous(),
                   valid[1:4, None].contiguous()))
     for a, av, b, bv in cases:
-        before = cuda_hamming.LAUNCHES
+        before = runtime.launches("k2")
         got = cuda_hamming.match_topk(a, av, b, bv, 10_000, 10_000)
-        assert cuda_hamming.LAUNCHES == before + 1
+        assert runtime.launches("k2") == before + 1
         want = cuda_hamming.match_topk_reference(a, av, b, bv, 10_000,
                                                  10_000)
         for g_, w, name in zip(got, want, ("d1", "i1", "d2", "best_a")):

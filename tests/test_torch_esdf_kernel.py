@@ -74,10 +74,10 @@ def test_sweep_count_and_steps_match_the_old_arithmetic():
 
 
 def test_wrapper_refuses_a_layer_off_the_card():
-    before = cuda_esdf.LAUNCHES
+    before = runtime.launches("esdf")
     with pytest.raises(ValueError, match="runs on cuda"):
         cuda_esdf.esdf_sweeps(SPEC, _layer(), esdf.EsdfConfig())
-    assert cuda_esdf.LAUNCHES == before
+    assert runtime.launches("esdf") == before
 
 
 @pytest.mark.parametrize("case", ["wide_blocks", "sdf_dtype", "weight_shape",
@@ -107,5 +107,13 @@ def test_check_layer_rejects_what_the_kernels_cannot_take(case):
 
 
 def test_snapshot_reports_esdf_launches(monkeypatch):
-    monkeypatch.setattr(cuda_esdf, "LAUNCHES", 85)
-    assert runtime.snapshot()["counters"]["esdf.launches"] == 85
+    """The wrapper's entry point counts under "esdf" in runtime, and
+    launches added there (1 + n_iters a build) show in snapshot() as
+    "esdf.launches"."""
+    monkeypatch.setattr(runtime, "_launch_counts",
+                        dict(runtime._launch_counts))
+    assert cuda_esdf._BUILD.name == "esdf"
+    before = runtime.snapshot()["counters"]["esdf.launches"]
+    runtime.add_launches("esdf", 85)
+    assert runtime.snapshot()["counters"]["esdf.launches"] == before + 85
+    assert runtime.launches("esdf") == before + 85

@@ -83,15 +83,30 @@ def test_port_continues_a_jax_state():
     assert int(hm.state.frame_count) == 7
 
 
+# the JAX integrator's fields for the TPU's Pallas path and working set
+TPU_ONLY = {"update_chunk_blocks", "use_pallas", "window_union_blocks",
+            "tile_h"}
+
+
 def test_config_from_copies_every_field():
+    """Every field of the port's configs is the JAX config's, nested
+    configs too; the JAX integrator's TPU-only fields are not ported."""
     cfg = interop.config_from(JCFG)
     assert isinstance(cfg, sm.MapperConfig)
-    for f in dataclasses.fields(cfg):
-        a, b = getattr(cfg, f.name), getattr(JCFG, f.name)
-        if dataclasses.is_dataclass(a):
-            assert dataclasses.asdict(a) == dataclasses.asdict(b), f.name
-        else:
-            assert a == b, f.name
+
+    def same(a, b, path):
+        for f in dataclasses.fields(a):
+            x, y = getattr(a, f.name), getattr(b, f.name)
+            if dataclasses.is_dataclass(x):
+                same(x, y, path + f.name + ".")
+            else:
+                assert x == y, path + f.name
+
+    same(cfg, JCFG, "")
+    ported = {f.name for f in dataclasses.fields(cfg.integrator)}
+    jax_fields = {f.name for f in dataclasses.fields(JCFG.integrator)}
+    assert TPU_ONLY <= jax_fields and not TPU_ONLY & ported
+    assert ported == jax_fields - TPU_ONLY
     # defaults agree too
     assert interop.config_from(jsm.MapperConfig()) == sm.MapperConfig()
 

@@ -2,8 +2,8 @@
 80×60 with 8³ blocks, on frames rendered by the JAX package.
 
 Tolerances:
-* allocation integers (block_index, block_coords, num_blocks, touched
-  bitmap, return_stats) — exact;
+* allocation integers (block_index, block_coords, num_blocks, the
+  window's updated bitmap and union size) — exact;
 * float pools vs the JAX XLA path (use_pallas=False) — the repo's
   standard for differing program structures (tests/test_mapper.py:239):
   atol 5e-3, and the share of |Δ| > 1e-4 below 1e-3 (observed: no value
@@ -28,6 +28,7 @@ from coxgraph_tpu.core import voxel as jvx
 from coxgraph_tpu.frontends import synthetic as jsyn
 from coxgraph_tpu.ops import pallas_tsdf
 from coxgraph_tpu.ops import tsdf as jtsdf
+from coxgraph_tpu_torch import runtime
 from coxgraph_tpu_torch.core import voxel as vx
 from coxgraph_tpu_torch.ops import cuda_alloc, cuda_tsdf
 from coxgraph_tpu_torch.ops import tsdf
@@ -140,13 +141,14 @@ def test_integrate_window_matches_jax():
     ps = vx.TsdfLayer(**{f.name: getattr(pl, f.name)[None]
                          for f in dataclasses.fields(pl)})
     # planar colours: the layout the mapper hands the window
-    ps, (nu_p, nd_p, up_p) = tsdf.integrate_window_stacked_impl(
+    up_p = tsdf.integrate_window_stacked_impl(
         SPEC, CFG, INTR, ps, torch.zeros((), dtype=torch.int32),
-        _t(depths), _t(colors).permute(0, 3, 1, 2), _t(traj),
-        return_stats=True)
+        _t(depths), _t(colors).permute(0, 3, 1, 2), _t(traj))
     _assert_pools_match(js, ps)
-    assert int(nu_p) == int(nu_j) > 0
-    assert int(nd_p) == int(nd_j) == 0
+    # the port's bitmap carries JAX's union size; JAX drops no update on
+    # these inputs (the port has no working set to drop from)
+    assert int(up_p.sum()) == int(nu_j) > 0
+    assert int(nd_j) == 0
     np.testing.assert_array_equal(up_p.numpy(), np.asarray(up_j))
 
 
@@ -192,14 +194,14 @@ def test_update_blocks_refuses_other_devices():
     cpu = vx.create_tsdf_layer(SPEC, CPU)
     layers = vx.TsdfLayer(**{f.name: getattr(cpu, f.name)[None].to("meta")
                              for f in dataclasses.fields(cpu)})
-    before = cuda_tsdf.LAUNCHES
+    before = runtime.launches("k1")
     with pytest.raises(ValueError):
         cuda_tsdf.update_blocks(
             SPEC, CFG, INTR, layers, torch.zeros((), dtype=torch.int32),
             torch.zeros(64, dtype=torch.int32),
             torch.zeros(64, dtype=torch.bool), _t(depths[0]),
             _t(colors[0]).permute(2, 0, 1).contiguous(), _t(traj[0]))
-    assert cuda_tsdf.LAUNCHES == before
+    assert runtime.launches("k1") == before
 
 
 def test_variant_edits_apply_to_the_kernel_source():

@@ -120,9 +120,7 @@ def build(names):
         regs = sorted({ln.split("Used ")[-1].strip() for ln in
                        log.splitlines() if "registers" in ln})
         print(f"build {name}: ptxas {regs}")
-        lib = ctypes.CDLL(stem + ".so")
-        _build.declare(lib)
-        libs[name] = (lib, exact)
+        libs[name] = (ctypes.CDLL(stem + ".so"), exact)
     return libs
 
 

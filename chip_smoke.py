@@ -116,7 +116,15 @@ no result line) if anything is wrong:
                  away there too), the normal equations at the start ≡
                  the CPU's (1e-4 of their max); (c) the
                  card's optimize_two_phase at 8 submaps ≡ the CPU's
-                 (poses 1e-4 m / rad, trace 1e-4 relative)
+                 (poses 1e-4 m / rad, trace 1e-4 relative); the
+                 registration kernel 13 times a solve (6 phase-2
+                 iterations) and 14 a register_pair; then, after the
+                 mapper is freed, the kernel at cvg_two_client.solve's
+                 shapes (48 submaps × 1,024 rows of 16³, 1,082 pairs ×
+                 2,048 points on a wavy floor) ≡ the plain composition
+                 (n_valid exact, H, b, cost within 1e-5), repeating bit
+                 for bit, both forms timed beside the plain version and
+                 the bytes bound: registration_terms on the kernels line
 
  12. servers   — the collaborative server tier through the port of
                  examples/two_robot_demo.py at the demo's own point
@@ -1349,7 +1357,10 @@ def phase_solve(device, ident, hm):
             registration_weight=30.0, reg_iterations=iters, fixed=fixed,
             reg_caches=caches, stack_cache=stack)
 
+    since = launches_since()
     solve()
+    # the registration kernel: twice a phase-2 iteration, once in the tail
+    assert since("reg") == 2 * 6 + 1, since("reg")
     (poses, info), syncs = count_syncs(solve)
     _, syncs0 = count_syncs(lambda: solve(0))
     peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
@@ -1469,13 +1480,15 @@ def phase_solve(device, ident, hm):
     # equations at the start (1e-4 of their max, n_valid exact).
     T_init = geo.compose(T01, geo.se3_exp(torch.tensor(
         [0.02, -0.015, 0.03, 0.06, -0.04, 0.05], device=device)))
+    since = launches_since()
     rp, wr = _fenced_ms(lambda: no_sync(lambda: reg.register_pair(
         cfg.spec, layers3[0], layers3[1], T_init)))
+    rcfg0 = reg.RegistrationConfig()
+    assert since("reg") == rcfg0.iterations + 2, since("reg")
     lr = profiled(lambda: reg.register_pair(cfg.spec, layers3[0],
                                             layers3[1], T_init))[2]
     e0 = float(geo.se3_log(geo.relative(T_init, T01)).norm())
     e1 = float(geo.se3_log(geo.relative(rp.T_A_B, T01)).norm())
-    rcfg0 = reg.RegistrationConfig()
     eqs = []
     for la, lb in (layers3[:2], [interop.layer_from_numpy(
             interop.layer_to_numpy(l), torch.device("cpu"))
@@ -1519,6 +1532,162 @@ def phase_solve(device, ident, hm):
     assert ig["n_registration_pairs"] == ic["n_registration_pairs"]
     assert dt <= 1e-4 and dr <= 1e-4 and rel <= 1e-4, (dt, dr, rel)
     return out
+
+
+# the registration kernel's record: cvg_two_client.solve's shapes (48
+# submaps of client_vga's 16³ blocks and 64³ grid, R = 1,024 rows each,
+# 1,082 pairs, 2,048 points a pair)
+REG_SHAPES = dict(submaps=48, rows=1024, pairs=1082, points=2048)
+
+
+def registration_problem(device, submaps: int, rows: int, pairs: int,
+                         points: int):
+    """A phase-2 registration pass at the solve cell's shapes → (spec,
+    (sdf, weight, table, pair_j, pts, sdf_A, mask_A, T_A, T_B, delta)):
+    ``submaps`` views of ``eval.benchmarks``' wavy floor through ``rows``
+    blocks of client_vga's spec (a 16 × 32 × 2-block slab at 1,024) from
+    poses on a 0.3-m lattice with a yaw each; the first ``pairs`` (i < j)
+    pairs, each nudged off its pose; each submap's ``points`` surface
+    samples (``registration.surface_point_cache``), stacked as
+    ``global_opt`` stacks them."""
+    from coxgraph_tpu_torch.core import geometry as geo
+    from coxgraph_tpu_torch.core import voxel as vx
+    from coxgraph_tpu_torch.eval import benchmarks as bm
+    from coxgraph_tpu_torch.ops import registration as reg
+
+    spec = vx.VoxelGridSpec(max_blocks=rows)
+    nx = rows // 64
+    xs, ys, zs = np.arange(-nx // 2, nx - nx // 2), np.arange(-16, 16), \
+        np.arange(-1, 1)
+    coords = torch.from_numpy(np.stack(np.meshgrid(
+        xs, ys, zs, indexing="ij"), -1).reshape(-1, 3).astype(np.int32))
+    base = vx.allocate_blocks(spec, vx.create_tsdf_layer(spec, device),
+                              coords.to(device))
+    centres = vx.voxel_centers_of_block(spec, base.block_coords).reshape(
+        -1, 3)
+    rcfg = reg.RegistrationConfig(max_points=points)
+    k = torch.arange(submaps, dtype=torch.float32)
+    poses = geo.from_xyzyaw(torch.stack(
+        [0.3 * (k % 8) - 1.0, 0.3 * (k // 8) - 0.8, 0.05 * (k % 3),
+         0.07 * k], -1)).to(device)
+    sdfs, ws, caches = [], [], []
+    for T in poses:
+        pw = geo.transform_points(T, centres)
+        sdf = torch.clamp(bm._wavy_floor_sdf(pw), -spec.truncation,
+                          spec.truncation).reshape(rows, -1)
+        w = torch.where(sdf.abs() < spec.truncation,
+                        torch.clamp(1.0 - sdf.abs() / spec.truncation,
+                                    min=0.0), 0.0)
+        layer = vx.TsdfLayer(sdf=sdf, weight=w, color=base.color,
+                             block_index=base.block_index,
+                             block_coords=base.block_coords,
+                             num_blocks=base.num_blocks)
+        caches.append(reg.surface_point_cache(spec, layer, rcfg))
+        sdfs.append(sdf)
+        ws.append(w)
+    ij = torch.tensor([(i, j) for i in range(submaps)
+                       for j in range(i + 1, submaps)][:pairs],
+                      dtype=torch.int64, device=device).T.contiguous()
+    g = torch.Generator().manual_seed(25)
+    nudged = geo.compose(poses, geo.se3_exp(
+        0.01 * torch.randn(submaps, 6, generator=g)).to(device))
+    table = base.block_index.reshape(1, -1).expand(submaps, -1).contiguous()
+    return spec, (torch.cat(sdfs), torch.cat(ws), table, ij[1].contiguous(),
+                  torch.stack([caches[i][0] for i in ij[0].tolist()]),
+                  torch.stack([caches[i][1] for i in ij[0].tolist()]),
+                  torch.stack([caches[i][2] for i in ij[0].tolist()]),
+                  nudged[ij[0]], nudged[ij[1]], rcfg.huber_delta)
+
+
+def registration_record(device, ident) -> dict:
+    """The registration kernel at the solve cell's shapes
+    (``REG_SHAPES``, ``registration_problem``): ≡ the plain composition on
+    the card (n_valid exact, H and b within 1e-5 of each pair's max |·|,
+    cost within 1e-5), a second call and the cost-only form repeat its
+    bits, one launch and no host sync a call. Then each back to back (CUDA
+    events) and the kernel's device time from CUDA-graph replays (both
+    forms), beside its bound: the points, sdf_A and mask read once and
+    the terms written once at the HBM rate (the corner reads requested
+    printed beside) → the record of the ``kernels`` line."""
+    from coxgraph_tpu_torch.ops import cuda_registration as creg
+    from coxgraph_tpu_torch.ops import registration as reg
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    spec, args = registration_problem(device, **REG_SHAPES)
+    sdf, w, bi, pair_j, pts = args[:5]
+    P, Q = pts.shape[:2]
+    S, R = bi.shape[0], sdf.shape[0] // bi.shape[0]
+    slots = reg.stacked_slots(spec, bi, pair_j, R)
+
+    def kernel():
+        return creg.pair_terms(spec, *args)
+
+    def cost_only():
+        return creg.pair_terms(spec, *args, cost_only=True)
+
+    def plain():
+        return reg.pair_terms(spec, sdf, w, slots, *args[4:])
+
+    since = launches_since()
+    got = no_sync(kernel)
+    again, part = kernel(), cost_only()
+    launches = since("reg")
+    want = plain()
+    torch.cuda.synchronize()
+    assert launches == 3, launches
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert torch.equal(part[2], got[2]) and torch.equal(part[3], got[3])
+    H, b, cost, n = got
+    Hw, bw, cw, nw = want
+    assert torch.equal(n, nw)
+    dH = float(((H - Hw).abs().amax((1, 2))
+                / Hw.abs().amax((1, 2)).clamp(min=1e-30)).max())
+    db = float(((b - bw).abs().amax(1)
+                / bw.abs().amax(1).clamp(min=1e-30)).max())
+    dc = float(((cost - cw).abs() / cw.abs().clamp(min=1e-30)).max())
+    assert dH <= 1e-5 and db <= 1e-5 and dc <= 1e-5, (dH, db, dc)
+    n_valid = int(n.sum())
+    peak_mb = (torch.cuda.max_memory_allocated() - mem0) / 2 ** 20
+    del got, again, part, want
+
+    rec = {}
+    for name, (fn, reps) in {"kernel": (kernel, EVENT_REPS),
+                             "cost_only": (cost_only, EVENT_REPS),
+                             "plain": (plain, 5)}.items():
+        _, dev_ms, n_launch, _, _, _ = profiled(fn)
+        rec[name] = (_time_ms(fn, reps), dev_ms, n_launch)
+    graph_ms = _graph_ms(kernel)
+    graph_cost_ms = _graph_ms(cost_only)
+    n_bytes = P * Q * (12 + 4 + 1) + P * (2 * 7 + 144 + 12 + 2) * 4
+    requested = P * Q * 8 * 12
+    bound, by = _bound_ms(n_bytes, 200.0 * P * Q, F32_FLOPS)
+    print(f"[11] registration kernel ≡ plain at the solve cell's shapes "
+          f"({S} submaps × {R} rows of {spec.voxels_per_side}³, {P} pairs × "
+          f"{Q} points, {n_valid} valid; H {dH:.1e}, b {db:.1e}, cost "
+          f"{dc:.1e} of their max, n_valid exact, repeats bit for bit): "
+          f"device {graph_ms:.4f} ms (graph), {rec['kernel'][1]:.4f} ms "
+          f"profiled, {rec['kernel'][0]:.4f} ms back to back, "
+          f"{rec['kernel'][2]:g} launches a call (the kernel and the poses' "
+          f"renormalization); cost-only {graph_cost_ms:.4f} ms; "
+          f"plain {rec['plain'][0]:.2f} ms back to back, device "
+          f"{rec['plain'][1]:.2f} ms, {rec['plain'][2]:g} launches; bound "
+          f"{bound:.4f} ms ({by}: {n_bytes / 1e6:.1f} MB; corner reads "
+          f"requested {requested / 1e6:.0f} MB, "
+          f"{requested / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+          f"{peak_mb:.0f} MiB peak, {time.perf_counter() - t0:.1f} s — "
+          f"{ident}")
+    return dict(launches=launches, call_launches=rec["kernel"][2],
+                ms=rec["kernel"][0], device_ms=graph_ms,
+                profiled_device_ms=rec["kernel"][1],
+                cost_only_device_ms=graph_cost_ms,
+                plain_ms=rec["plain"][0], plain_device_ms=rec["plain"][1],
+                plain_launches=rec["plain"][2], bound_ms=bound, bound_by=by,
+                bound_bytes=n_bytes, requested_bytes=requested,
+                max_rel_err=max(dH, db, dc), pairs=P, points=Q, submaps=S,
+                rows=R, valid=n_valid)
 
 
 def _online_graph(server):
@@ -2601,6 +2770,8 @@ def main() -> None:
     phase_solve(device, ident, hm)
     del hm
     torch.cuda.empty_cache()
+    reg_terms = registration_record(device, ident)
+    torch.cuda.empty_cache()
 
     # ---- 6b. end-to-end benchmark ---------------------------------------
     fps = bm.tsdf_benchmark(depths, colors, traj)
@@ -2712,6 +2883,13 @@ def main() -> None:
         "max_abs_err": 0,
         "library_ms": None,
         **esdf,
+    }, {
+        "name": "registration_terms",
+        "route": "cuda",
+        "source": "coxgraph_tpu_torch/csrc/registration_terms.cu",
+        "replaces": None,   # no TPU kernel: the JAX package's terms are XLA
+        "library_ms": None,
+        **reg_terms,
     }]}))
     print(ident)
     print(json.dumps({"ok": True, "device": {

@@ -40,7 +40,7 @@ BUILD_DIR = os.path.join(CSRC, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libcoxgraph_tpu_torch.so")
 LOG_PATH = os.path.join(BUILD_DIR, "build.log")
 SOURCES = ("tsdf_update.cu", "hamming_match.cu", "tsdf_alloc.cu",
-           "esdf_sweep.cu")
+           "esdf_sweep.cu", "registration_terms.cu")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-fmad=false",
                               "-Xptxas", "-v", "-Xcompiler", "-fPIC")

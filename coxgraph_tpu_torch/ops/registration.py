@@ -14,13 +14,15 @@ linear in the point, so its gradient is Σ_c sdf_c · ∂w_c/∂frac · (1/s)
 derivatives J_A = [p × h, h], h = R_Aᵀ R_B ∇, and J_B = [∇ × p_B, −∇].
 This is what ``jax.jacfwd`` computes through the reference's sampler.
 Every pair and every point is one batched pass; nothing reads back to
-the host.
+the host. ``pair_terms`` here is the plain version: on the card the terms
+come from one kernel, ``cuda_registration.pair_terms``, which every caller
+goes through.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,6 +30,7 @@ from ..core import geometry as geo
 from ..core import voxel as vx
 from ..solver.pose_graph import cho_solve, renormalized
 from ..utils.tensorops import f32_reciprocal
+from . import cuda_registration    # imports this module back
 
 Tensor = torch.Tensor
 
@@ -106,8 +109,27 @@ def surface_point_cache(spec: vx.VoxelGridSpec, layer: vx.TsdfLayer,
 SlotFn = Callable[[Tensor], Tensor]
 
 
-def layer_slots(spec: vx.VoxelGridSpec, layer: vx.TsdfLayer) -> SlotFn:
-    return lambda b: vx.lookup_block(spec, layer, b)
+def stacked_slots(spec: vx.VoxelGridSpec, bi: Tensor,
+                  pair_j: Optional[Tensor], R: int) -> SlotFn:
+    """Block lookup of pair p in table row pair_j[p] of S submaps' stacked
+    field (rows j·R + [0, R)): block coords (P, ..., 3) → rows of the flat
+    pool (-1 if missing). ``bi`` (S, G³) holds rows in [0, R) or -1;
+    ``pair_j`` None: row 0 for every point, ``vx.lookup_block``'s
+    arithmetic."""
+    g3 = bi.shape[1]
+    flat_bi = bi.reshape(-1)
+
+    def slot_of(b):
+        slot = vx.block_grid_slot(spec, b)
+        if pair_j is None:
+            return torch.where(vx.block_in_grid(spec, b),
+                               flat_bi[slot.long()], -1)
+        j = pair_j.long().reshape((-1,) + (1,) * (b.dim() - 2))
+        v = flat_bi[j * g3 + slot]
+        ok = vx.block_in_grid(spec, b) & (v >= 0)
+        return torch.where(ok, v + j * R, -1)
+
+    return slot_of
 
 
 def sample_with_gradient(spec: vx.VoxelGridSpec, sdf: Tensor,
@@ -190,10 +212,11 @@ def registration_normal_eq(spec: vx.VoxelGridSpec, layerB: vx.TsdfLayer,
                            T_O_A: Tensor, T_O_B: Tensor,
                            huber_delta: float = 0.1):
     """GN contribution of one registration pair → (H (12,12), b (12,),
-    cost, n_valid)."""
-    return pair_terms(spec, layerB.sdf, layerB.weight,
-                      layer_slots(spec, layerB), pts_A, sdf_A, mask_A,
-                      T_O_A, T_O_B, huber_delta)
+    cost, n_valid): ``cuda_registration.pair_terms`` with B's block index
+    as the one table row and its whole pool as the rows."""
+    return cuda_registration.pair_terms(
+        spec, layerB.sdf, layerB.weight, layerB.block_index.reshape(1, -1),
+        None, pts_A, sdf_A, mask_A, T_O_A, T_O_B, huber_delta)
 
 
 class RegisterResult(NamedTuple):

@@ -7,10 +7,12 @@ overlapping submap pair. Overlap detection is host numpy on the submaps'
 AABBs. Phase 2 is one batched pass over all pairs per LM iteration: the
 live pool rows [0, R) of every submap are stacked into one (S·R, v³)
 field and each pair's points sample it through block-index rows shifted
-by j·R. LM iterations run on the device with no host read; the solve's
-host reads are the phase-1 result (poses and cost, one read), the
-submaps' geometry when no cached AABBs are given (one read for all
-submaps), the pair list's upload, and the cost trace (one read).
+by j·R, on the card in one kernel launch a pass
+(``ops.cuda_registration``). LM iterations run on the device with no
+host read; the solve's host reads are the phase-1 result (poses and
+cost, one read), the submaps' geometry when no cached AABBs are given
+(one read for all submaps), the pair list's upload, and the cost trace
+(one read).
 
 The reference pads the submap and pair counts to powers of two for its
 compile cache; padded pairs contribute exactly zero, so the port does
@@ -28,6 +30,7 @@ import torch
 from .. import runtime
 from ..core import geometry as geo
 from ..core import voxel as vx
+from ..ops import cuda_registration
 from ..ops import registration as reg
 from ..solver import pose_graph as pg
 from ..utils.tensorops import host
@@ -206,23 +209,6 @@ def _stack_fields(layers: Sequence[vx.TsdfLayer], R: int):
     return sdf.reshape(-1, v3), w.reshape(-1, v3), bi
 
 
-def _stacked_slots(spec: vx.VoxelGridSpec, bi: Tensor, pair_j: Tensor,
-                   R: int) -> reg.SlotFn:
-    """Block lookup of pair p in submap pair_j[p]'s rows of the stacked
-    field: block coords (P, ..., 3) → rows of the flat pool (-1 if
-    missing)."""
-    g3 = bi.shape[1]
-    flat_bi = bi.reshape(-1)
-
-    def slot_of(b):
-        j = pair_j.long().reshape((-1,) + (1,) * (b.dim() - 2))
-        v = flat_bi[j * g3 + vx.block_grid_slot(spec, b)]
-        ok = vx.block_in_grid(spec, b) & (v >= 0)
-        return torch.where(ok, v + j * R, -1)
-
-    return slot_of
-
-
 @dataclasses.dataclass
 class RegistrationPair:
     i: int
@@ -263,18 +249,18 @@ def _phase2_funcs(spec: vx.VoxelGridSpec,
     so the cost trace never increases.
 
     Shapes: pair_i/j (P,), pts (P,Q,3), sdfA/maskA (P,Q)."""
-    R = sdf_flat.shape[0] // bi.shape[0]
     n = fixed_all.shape[0]
-    slot_of = _stacked_slots(spec, bi, pair_j, R)
 
-    def pair_terms(cur_poses):
-        Hs, bs, costs, nins = reg.pair_terms(
-            spec, sdf_flat, w_flat, slot_of, pts, sdfA, maskA,
+    def pair_terms(cur_poses, cost_only=False):
+        Hs, bs, costs, nins = cuda_registration.pair_terms(
+            spec, sdf_flat, w_flat, bi, pair_j, pts, sdfA, maskA,
             pg._gather(cur_poses, pair_i), pg._gather(cur_poses, pair_j),
-            huber_delta)
-        scale = w2 / torch.clamp(nins.to(Hs.dtype), min=1.0)
-        return (Hs * scale[:, None, None], bs * scale[:, None],
-                torch.sum(costs * scale))
+            huber_delta, cost_only=cost_only)
+        scale = w2 / torch.clamp(nins.to(costs.dtype), min=1.0)
+        c_reg = torch.sum(costs * scale)
+        if cost_only:
+            return c_reg
+        return Hs * scale[:, None, None], bs * scale[:, None], c_reg
 
     def assemble(cur_poses):
         H, b, c_rel = pg._build_normal_equations(cur_poses, constraints,
@@ -293,9 +279,8 @@ def _phase2_funcs(spec: vx.VoxelGridSpec,
         return H, b, c_rel + c_reg
 
     def total_cost(cur_poses):
-        _, _, c_reg = pair_terms(cur_poses)
         return pg._total_cost(cur_poses, constraints, solver_cfg,
-                              heights) + c_reg
+                              heights) + pair_terms(cur_poses, cost_only=True)
 
     def step(cur_poses, lam):
         H, b, cost = assemble(cur_poses)
@@ -385,7 +370,8 @@ def optimize_two_phase(poses: Tensor,
     if not rpairs:
         return poses, info
 
-    ij = torch.as_tensor(np.array(pairs_idx, np.int64).T).to(device)
+    ij = torch.as_tensor(np.ascontiguousarray(
+        np.array(pairs_idx, np.int64).T)).to(device)
     pair_i, pair_j = ij[0], ij[1]
     if fixed is None:
         fixed = pg.default_fixed(n, device)

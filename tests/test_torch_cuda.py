@@ -977,7 +977,9 @@ def test_registration_on_gpu_matches_cpu(gpu):
         Hc.abs().max())
     assert float((bg.cpu() - bc).abs().max()) <= 1e-4 * float(
         bc.abs().max())
+    before = runtime.launches("reg")
     rg = _no_sync(lambda: reg.register_pair(spec, ga, gb, T_init, rcfg))
+    assert runtime.launches("reg") - before == rcfg.iterations + 2
     rc = reg.register_pair(spec, ca, cb, Tc, rcfg)
     dt, dr = _pose_err(rg.T_A_B[None], rc.T_A_B[None])
     assert dt <= 1e-4 and dr <= 1e-4, (dt, dr)
@@ -997,9 +999,14 @@ def test_two_phase_on_gpu_matches_cpu(gpu):
         init, cons, layers, spec, rcfg, scfg, fixed = \
             bm.solve_benchmark_problem(8, device=torch.device(dev))
         rcfg = dataclasses.replace(rcfg, phase2_dispatch_iters=di)
+        before = runtime.launches("reg")
         out[(dev, di)] = go.optimize_two_phase(
             init, cons, spec, layers, reg_cfg=rcfg, solver_cfg=scfg,
             registration_weight=30.0, reg_iterations=6, fixed=fixed)
+        # the kernel twice an iteration (assemble, the trial's cost), once
+        # for the final cost; never on the CPU
+        assert runtime.launches("reg") - before == (13 if dev == "cuda"
+                                                    else 0)
     pc, ic = out[("cpu", 0)]
     for key in (("cuda", 0), ("cuda", 2)):
         pg_, ig = out[key]
@@ -1008,6 +1015,138 @@ def test_two_phase_on_gpu_matches_cpu(gpu):
         assert dt <= 1e-4 and dr <= 1e-4, (key, dt, dr)
         np.testing.assert_allclose(ig["phase2_cost_trace"],
                                    ic["phase2_cost_trace"], rtol=1e-4)
+
+
+def _reg_kernel_vs_plain(spec, sdf, w, bi, pair_j, pts, sdfA, maskA, TA,
+                         TB, delta=0.1):
+    """The registration kernel (``cuda_registration.pair_terms`` on the
+    card, one launch, no host sync) against the plain composition on the
+    card over the same lookup: n_valid exact, H and b within 1e-5 of each
+    pair's max |·|, cost within 1e-5 relative (the sums' order alone
+    differs); a second call and the cost-only form repeat its bits."""
+    from coxgraph_tpu_torch.ops import cuda_registration as creg
+    from coxgraph_tpu_torch.ops import registration as reg
+
+    args = (spec, sdf, w, bi, pair_j, pts, sdfA, maskA, TA, TB, delta)
+    before = runtime.launches("reg")
+    got = _no_sync(lambda: creg.pair_terms(*args))
+    again = creg.pair_terms(*args)
+    part = creg.pair_terms(*args, cost_only=True)
+    assert runtime.launches("reg") - before == 3
+    R = sdf.shape[0] // bi.shape[0]
+    want = reg.pair_terms(spec, sdf, w, reg.stacked_slots(spec, bi, pair_j,
+                                                           R),
+                          pts, sdfA, maskA, TA, TB, delta)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    assert part[0] is None and part[1] is None
+    assert torch.equal(part[2], got[2]) and torch.equal(part[3], got[3])
+    H, b, cost, n = got
+    Hw, bw, cw, nw = want
+    assert H.shape == Hw.shape and n.dtype == torch.int32
+    assert torch.equal(n, nw)
+    lead = H.shape[:-2]
+    dH = (H - Hw).abs().reshape(lead + (-1,)).amax(-1)
+    db = (b - bw).abs().amax(-1)
+    assert bool((dH <= 1e-5 * Hw.abs().reshape(lead + (-1,)).amax(-1)).all())
+    assert bool((db <= 1e-5 * bw.abs().amax(-1)).all())
+    assert bool(((cost - cw).abs() <= 1e-5 * cw.abs()).all())
+    return got
+
+
+@pytest.mark.cuda
+def test_registration_kernel_matches_plain_on_solve_pairs(gpu):
+    """Every overlapping pair of 8 submaps of the bench solve problem at
+    Q = 2,048 points, from the drifted start nudged per submap, over the
+    stacked field at R = 48 of 64 rows (the rest fall out of the
+    sampling)."""
+    from coxgraph_tpu_torch.eval import benchmarks as bm
+    from coxgraph_tpu_torch.ops import registration as reg
+    from coxgraph_tpu_torch.server import global_opt as go
+
+    init, _, layers, spec, rcfg, _, _ = bm.solve_benchmark_problem(
+        8, device=gpu)
+    rcfg = dataclasses.replace(rcfg, max_points=2048)
+    pairs = go.find_overlapping_pairs(spec, layers, init)
+    rp = go.make_registration_pairs(spec, layers, pairs, rcfg)
+    ij = torch.tensor(pairs, dtype=torch.int64, device=gpu).T.contiguous()
+    sdf, w, bi = go._stack_fields(layers, 48)
+    g = torch.Generator().manual_seed(11)
+    poses = geo.compose(init, geo.se3_exp(
+        0.02 * torch.randn(8, 6, generator=g)).to(gpu))
+    H, _, _, n = _reg_kernel_vs_plain(
+        spec, sdf, w, bi, ij[1].contiguous(),
+        torch.stack([p.pts_i for p in rp]),
+        torch.stack([p.sdf_i for p in rp]),
+        torch.stack([p.mask_i for p in rp]), poses[ij[0]], poses[ij[1]],
+        rcfg.huber_delta)
+    assert len(pairs) >= 10 and int(n.max()) > 500
+    assert torch.equal(H, H.transpose(-1, -2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vps", [5, 8])
+def test_registration_kernel_matches_plain_at_the_edges(gpu, vps):
+    """Two submaps of 40 random blocks in a 4³-block cube of an 8³ grid
+    (5³ and 8³ voxels a block), 5% of the voxels unobserved (w = 0);
+    points in a box past the cube's faces (many in missing blocks), 64 a
+    pair three times as far (most outside the grid), a fifth masked off;
+    pair 3 wholly masked (n = 0: H, b and cost 0). Then the S = 1 form, ``registration_normal_eq``,
+    against the plain terms over ``vx.lookup_block``."""
+    from coxgraph_tpu_torch.ops import registration as reg
+    from coxgraph_tpu_torch.server import global_opt as go
+
+    spec = vx.VoxelGridSpec(voxel_size=0.1, voxels_per_side=vps, grid_dim=8,
+                            max_blocks=40, truncation=0.2)
+    g = torch.Generator().manual_seed(vps)
+    cube = _block_cube(-2, 2)
+    layers = []
+    for _ in range(2):
+        layer = vx.allocate_blocks(spec, vx.create_tsdf_layer(spec, "cpu"),
+                                   cube[torch.randperm(len(cube),
+                                                       generator=g)[:40]])
+        shape = layer.sdf.shape
+        layer.sdf = torch.rand(shape, generator=g) - 0.5
+        layer.weight = torch.where(torch.rand(shape, generator=g) < 0.05,
+                                   0.0, 0.5 + torch.rand(shape, generator=g))
+        layers.append(vx.TsdfLayer(**{
+            f.name: getattr(layer, f.name).to(gpu)
+            for f in dataclasses.fields(layer)}))
+    sdf, w, bi = go._stack_fields(layers, 40)
+    P, Q = 6, 777
+    # 1.2 × the allocated cube's half width; the first 64 points 3× that,
+    # mostly outside the grid
+    extent = 0.1 * vps * 2 * 1.2
+    pts = (torch.rand(P, Q, 3, generator=g) * 2 - 1) * extent
+    pts[:, :64] *= 3.0
+    pts = pts.to(gpu)
+    sdfA = (torch.rand(P, Q, generator=g) - 0.5).to(gpu)
+    maskA = torch.rand(P, Q, generator=g) < 0.8
+    maskA[3] = False
+    pair_j = (torch.arange(P) % 2).to(gpu)
+    T = geo.se3_exp(torch.cat([0.3 * torch.randn(2 * P, 3, generator=g),
+                               0.2 * torch.randn(2 * P, 3, generator=g)],
+                              -1)).to(gpu)
+    H, b, cost, n = _reg_kernel_vs_plain(spec, sdf, w, bi, pair_j, pts,
+                                         sdfA, maskA.to(gpu), T[:P], T[P:])
+    assert int(n[3]) == 0 and float(cost[3]) == 0.0
+    assert not bool(H[3].any()) and not bool(b[3].any())
+    assert int(n.sum()) > 100
+
+    layer = layers[1]
+    args = (pts[0], sdfA[0], maskA[0].to(gpu), T[0], T[P])
+    before = runtime.launches("reg")
+    got = _no_sync(lambda: reg.registration_normal_eq(spec, layer, *args))
+    assert runtime.launches("reg") - before == 1
+    want = reg.pair_terms(spec, layer.sdf, layer.weight,
+                          lambda c: vx.lookup_block(spec, layer, c), *args,
+                          0.1)
+    assert int(got[3]) == int(want[3]) > 10
+    for x, y in zip(got[:2], want[:2]):
+        assert x.shape == y.shape
+        assert float((x - y).abs().max()) <= 1e-5 * float(y.abs().max())
+    assert abs(float(got[2]) - float(want[2])) <= 1e-5 * float(want[2])
 
 
 def _small_servers(gpu, height=0.0, **kw):
